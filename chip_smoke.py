@@ -8,11 +8,19 @@ Phases (any failure exits non-zero):
     per source, in parallel), timed;
  3. hold each kernel against its plain PyTorch version at the shapes the
     serving path gives it (bf16; the conv kernel also fp32 with TF32 off),
-    and time kernel, plain version, and the library call where one exists;
+    and time kernel (held, and unheld: `wall_ms`, with the host's cost per
+    call), plain version, and the library call where one exists;
+ 3b. the kernel benches (`enhanced_unet_tpu_torch.benchmarks`): every launch
+    count set to 0, then the `main()` of `dw_variants`, `mbconv_instr` and
+    `mbconv_proto` at their full shapes, which hold each kernel against its
+    plain version and time it; the depthwise and copy counts, and the MBConv
+    kernels' count during `mbconv_proto`'s run, must move.  The benches'
+    rows give the kernels' entries and the copy's measured bandwidth;
  4. the slice: `get_model("enhanced_unet")` at full width (EfficientNet-B5
     UNet++ + EfficientNet-B4 DeepLabV3+, bf16, seeded random weights) served
     by an `Evaluator` with TTA: three requests of two 512x512 images; every
-    kernel's launch count must move;
+    count set to 0 before it; the serving kernels' counts must move and the
+    benches' kernels' counts must not;
  5. cross-check: one 256x256 image, one view, bf16 on the card against the
     same weights in fp32 on the CPU (plain PyTorch path);
  6. a `{"kernels": [...]}` line, the card line, and the final JSON line.
@@ -40,21 +48,6 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean device time of `fn()` over `reps` runs, by CUDA events."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"bf16": 989e12, "fp32": 67e12}   # dense tensor-core bf16; fp32 CUDA cores
 
@@ -63,6 +56,12 @@ def bound(bytes_moved: float, ops: float, kind: str):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[kind] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def reset(counters) -> None:
+    for counter in counters:
+        for name in counter:
+            counter[name] = 0
 
 
 def synthetic_images(n: int, size: int, seed: int):
@@ -146,8 +145,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    from enhanced_unet_tpu_torch.benchmarks import dw_variants, mbconv_instr
+    from enhanced_unet_tpu_torch.benchmarks import mbconv_proto as proto
+    from enhanced_unet_tpu_torch.benchmarks.microtime import device_ms
     from enhanced_unet_tpu_torch.ops.kernels import KERNEL_SOURCES, build
-    from enhanced_unet_tpu_torch.ops.kernels import conv_fused, mbconv
+    from enhanced_unet_tpu_torch.ops.kernels import conv_fused, depthwise, mbconv
+    from enhanced_unet_tpu_torch.ops.kernels import copy as copy_k
     from enhanced_unet_tpu_torch.train.evaluator import Evaluator
     import torch.nn.functional as F
 
@@ -205,13 +208,16 @@ def main() -> int:
                                 + cout * 8, 2 * 9 * cin * cout * n * h * w, "bf16")
                 r = dict(
                     shape=f"[{n},{h},{w},{cin}]->{cout} bf16", max_abs_err=err,
-                    ms=cuda_ms(lambda: conv_fused.fused_conv3x3_bn_relu(*args), 3),
-                    plain_ms=cuda_ms(lambda: conv_fused.fused_conv3x3_bn_relu_plain(*args), 3),
+                    ms=device_ms(lambda: conv_fused.fused_conv3x3_bn_relu(*args), 3),
+                    wall_ms=device_ms(lambda: conv_fused.fused_conv3x3_bn_relu(*args), 3,
+                                      held=False),
+                    plain_ms=device_ms(
+                        lambda: conv_fused.fused_conv3x3_bn_relu_plain(*args), 3),
                     bound_ms=b, bound_by=kind,
-                    library_ms=cuda_ms(lambda: conv_library(*args), 3))
-                print(f"K2 timing {r['shape']}: kernel {r['ms']:.4f} ms, plain "
-                      f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
-                      f"bound {b:.4f} ms ({kind})")
+                    library_ms=device_ms(lambda: conv_library(*args), 3))
+                print(f"K2 timing {r['shape']}: kernel {r['ms']:.4f} ms (unheld "
+                      f"{r['wall_ms']:.4f}), plain {r['plain_ms']:.4f} ms, library "
+                      f"{r['library_ms']:.4f} ms, bound {b:.4f} ms ({kind})")
                 if shape == k2_shapes[1]:
                     results["conv3x3_bn_act"] = r
             del got, want, args
@@ -260,22 +266,86 @@ def main() -> int:
                            + cout * 4, hw * (ops + 2 * mid * cout + 2 * cout),
                            "bf16")
             r1 = dict(shape=f"[{n},{cin},{h},{w}] mid {mid} bf16", max_abs_err=err1,
-                      ms=cuda_ms(lambda: mbconv.mbconv_pass1(x, p), 5),
-                      plain_ms=cuda_ms(lambda: mbconv.mbconv_pass1_plain(x, p), 5),
+                      ms=device_ms(lambda: mbconv.mbconv_pass1(x, p), 5),
+                      wall_ms=device_ms(lambda: mbconv.mbconv_pass1(x, p), 5, held=False),
+                      plain_ms=device_ms(lambda: mbconv.mbconv_pass1_plain(x, p), 5),
                       bound_ms=b1, bound_by=k1, library_ms=None)
             r2 = dict(shape=f"[{n},{cin},{h},{w}] mid {mid} ->{cout}"
                             f"{' residual' if res else ''} bf16",
                       max_abs_err=err,
-                      ms=cuda_ms(lambda: mbconv.mbconv_pass2(x, p, wpp, res), 5),
-                      plain_ms=cuda_ms(lambda: mbconv.mbconv_pass2_plain(x, p, wpp, res), 5),
+                      ms=device_ms(lambda: mbconv.mbconv_pass2(x, p, wpp, res), 5),
+                      wall_ms=device_ms(lambda: mbconv.mbconv_pass2(x, p, wpp, res), 5,
+                                        held=False),
+                      plain_ms=device_ms(lambda: mbconv.mbconv_pass2_plain(x, p, wpp, res), 5),
                       bound_ms=b2, bound_by=k2, library_ms=None)
             for name, r in (("pass 1", r1), ("pass 2", r2)):
-                print(f"K1 {name} timing {r['shape']}: kernel {r['ms']:.4f} ms, plain "
-                      f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-                      f"({r['bound_by']})")
+                print(f"K1 {name} timing {r['shape']}: kernel {r['ms']:.4f} ms (unheld "
+                      f"{r['wall_ms']:.4f}), plain {r['plain_ms']:.4f} ms, bound "
+                      f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
             if shape == k1_shapes[1]:
                 results["mbconv_pass1"], results["mbconv_pass2"] = r1, r2
             del got, want, x, p, sums, want1, wpp
+
+    # ---- 3b. the kernel benches -------------------------------------------
+    # each bench checks its kernels against their plain versions and times
+    # them (`microtime.kernel_row`); their rows make the kernels' entries
+    counters = (conv_fused.LAUNCHES, mbconv.LAUNCHES, depthwise.LAUNCHES,
+                copy_k.LAUNCHES)
+    t0 = time.perf_counter()
+    reset(counters)
+    with torch.no_grad():
+        rows = dw_variants.main() + mbconv_instr.main()
+        before = sum(mbconv.LAUNCHES.values())
+        rows += proto.main()
+        proto_launches = sum(mbconv.LAUNCHES.values()) - before
+    bench_launches = {**depthwise.LAUNCHES, **copy_k.LAUNCHES,
+                      "mbconv_proto": proto_launches}
+    print(f"benches: {time.perf_counter() - t0:.2f} s, launches "
+          f"{json.dumps(bench_launches)}, mbconv {json.dumps(mbconv.LAUNCHES)}")
+    for name, count in {**bench_launches, **mbconv.LAUNCHES}.items():
+        check(count > 0, f"kernel {name} was not launched by the benches")
+    rows = {r["bench"]: r for r in rows if "bench" in r}
+
+    n, c, h, w = mbconv_instr.N, mbconv_instr.C, mbconv_instr.H, mbconv_instr.W
+    check((n, c, h, w) == (dw_variants.N, dw_variants.C, dw_variants.H, dw_variants.W),
+          "the depthwise benches share one shape")
+    elems = n * c * h * w
+    # read x once, write the output once (+ weights); 9 multiply-adds, the
+    # bias and the SiLU (~5) per element
+    dw_bound = bound(elems * 4 + c * (9 * 2 + 4), elems * 23, "bf16")
+    shape = f"[{n},{c},{h},{w}] bf16"
+    entries = [("dw3x3_bias_silu", rows["dw3x3_bias_silu"], shape, dw_bound, 2e-2),
+               ("dw_rows_silu", rows["dw_only"], f"{shape} bh {mbconv_instr.BH}",
+                dw_bound, 2e-2),
+               ("copy", rows["copy"], shape, bound(elems * 4, 0, "bf16"), 0.0)]
+    for case in proto.CASES:
+        name, n, cin, mid, cout, h, w, expand = case
+        hw = n * h * w
+        # the block once: x read and the output written once (+ weights);
+        # per pixel the expand (2*cin*mid, bias and SiLU ~5*mid), the
+        # depthwise with bias and SiLU (23*mid) and its pool sum (mid), the
+        # projection (2*mid*cout) with bias and residual (2*cout)
+        ops = hw * ((2 * cin + 5) * mid * expand + 24 * mid + 2 * mid * cout + 2 * cout)
+        w_bytes = ((mid * cin * 2 + mid * 4) * expand + mid * (9 * 2 + 4)
+                   + mid * cout * 4 + cout * 4)
+        entries.append(("mbconv_proto", rows[name],
+                        f"{name} [{n},{cin},{h},{w}] mid {mid} residual bf16",
+                        bound(hw * (cin + cout) * 2 + w_bytes, ops, "bf16"), 2e-2))
+    for key, row, what, (b, kind), tol in entries:
+        print(f"{key} {what}: max_abs_err {row['max_abs_err']:.3e} rel "
+              f"{row['rel_err']:.3e} (tol {tol:g}); kernel {row['ms']:.4f} ms (unheld "
+              f"{row['wall_ms']:.4f}), plain {row['plain_ms']:.4f} ms, library "
+              f"{'none' if row['library_ms'] is None else format(row['library_ms'], '.4f')}"
+              f", bound {b:.4f} ms ({kind})")
+        check(row["rel_err"] <= tol, f"{key} {what} rel err {row['rel_err']}")
+        # the MBConv block's library yardstick is several calls: no library_ms
+        results.setdefault(key, dict(
+            shape=what, max_abs_err=row["max_abs_err"], ms=row["ms"],
+            wall_ms=row["wall_ms"], plain_ms=row["plain_ms"], bound_ms=b, bound_by=kind,
+            library_ms=None if key == "mbconv_proto" else row["library_ms"]))
+    print(f"copy bandwidth {shape}: kernel {rows['copy']['gb_per_s']:.1f} GB/s, "
+          f"Tensor.copy_ {rows['copy']['library_gb_per_s']:.1f} GB/s measured; "
+          f"data sheet {HBM_BYTES_PER_S / 1e9:.0f} GB/s (the bounds' divisor)")
 
     # ---- 4. the slice: full-width flagship served with TTA ---------------
     torch.cuda.empty_cache()
@@ -288,10 +358,7 @@ def main() -> int:
     check(evaluator.enable_tta, "the enhanced_unet preset serves with TTA")
     requests = [synthetic_images(2, 512, seed) for seed in range(3)]
     torch.cuda.reset_peak_memory_stats()
-    for k in conv_fused.LAUNCHES:
-        conv_fused.LAUNCHES[k] = 0
-    for k in mbconv.LAUNCHES:
-        mbconv.LAUNCHES[k] = 0
+    reset(counters)
     times = []
     classes_seen = set()
     for imgs in requests:
@@ -312,6 +379,8 @@ def main() -> int:
     check(len(classes_seen) >= 2, f"the cascade decided only {classes_seen}")
     for name, count in launches.items():
         check(count > 0, f"kernel {name} was not launched by the serving path")
+    off_path = {**depthwise.LAUNCHES, **copy_k.LAUNCHES}
+    check(not any(off_path.values()), f"the serving path launched {off_path}")
     profile_request(evaluator, requests[-1], 1e3 * min(times[1:]))
 
     # ---- 5. full-width cross-check against the fp32 CPU plain path ------
@@ -341,15 +410,26 @@ def main() -> int:
                          "enhanced_unet_tpu/ops/pallas/mbconv.py:208"),
         "mbconv_pass2": ("enhanced_unet_tpu_torch/csrc/mbconv.cu",
                          "enhanced_unet_tpu/ops/pallas/mbconv.py:233"),
+        "mbconv_proto": ("enhanced_unet_tpu_torch/csrc/mbconv.cu",
+                         "benchmarks/pallas_mbconv_proto.py:137/:162"),
+        "dw3x3_bias_silu": ("enhanced_unet_tpu_torch/csrc/depthwise.cu",
+                            "benchmarks/pallas_dw_variants.py:127/:131/:135/:145"),
+        "dw_rows_silu": ("enhanced_unet_tpu_torch/csrc/depthwise.cu",
+                         "benchmarks/pallas_mbconv_instr.py:81"),
+        "copy": ("enhanced_unet_tpu_torch/csrc/copy.cu",
+                 "benchmarks/pallas_mbconv_instr.py:76/:117"),
     }
+    # launches: the serving run's for its kernels, the benches' (3b) for theirs
+    path_launches = {**launches, **bench_launches}
     kernels = []
     for name, (source, replaces) in meta.items():
         r = results[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces, "launches": path_launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        "wall_ms": r["wall_ms"], "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"],
                         "shape": r["shape"]})
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,15 +1,20 @@
 """The PyTorch port's package boundary and device rule.
 
-- Importing every module of `enhanced_unet_tpu_torch` loads neither JAX nor
-  any module of the JAX package (checked in a fresh interpreter, since this
-  test process has imported JAX already).  Module names are matched exactly
-  or by `name + "."`: the port's own name starts with `enhanced_unet_tpu`.
+- Importing every module of `enhanced_unet_tpu_torch`, as
+  `pkgutil.walk_packages` finds them, loads neither JAX nor any module of
+  the JAX package (checked in a fresh interpreter, since this test process
+  has imported JAX already).  Module names are matched exactly or by
+  `name + "."`: the port's own name starts with `enhanced_unet_tpu`.
+- No `import` statement in the port's files or in `chip_smoke.py`, at any
+  depth, names JAX or the JAX package (imports inside functions run only
+  when called, so the probe alone would miss them).
 - With no card, the entry points refuse to run instead of using the CPU;
   a kernel wrapper runs its plain version only for a CPU tensor, and a
   missing `nvcc` raises.
 - The port's presets equal the JAX package's, field for field.
 """
 
+import ast
 import dataclasses
 import os
 import subprocess
@@ -27,24 +32,43 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = """
-import sys
+import importlib, pkgutil, sys
 before = set(sys.modules)
 import enhanced_unet_tpu_torch
-import enhanced_unet_tpu_torch.config, enhanced_unet_tpu_torch.device
-import enhanced_unet_tpu_torch.models, enhanced_unet_tpu_torch.convert
-import enhanced_unet_tpu_torch.ops.resize, enhanced_unet_tpu_torch.ops.preprocess
-import enhanced_unet_tpu_torch.ops.tta, enhanced_unet_tpu_torch.ops.thresholding
-import enhanced_unet_tpu_torch.ops.kernels.build
-import enhanced_unet_tpu_torch.ops.kernels.conv_fused
-import enhanced_unet_tpu_torch.ops.kernels.mbconv
-import enhanced_unet_tpu_torch.train.evaluator
+walked = [m.name for m in pkgutil.walk_packages(enhanced_unet_tpu_torch.__path__,
+                                                "enhanced_unet_tpu_torch.")]
+for name in walked:
+    importlib.import_module(name)
 loaded = set(sys.modules) - before
 for pkg in ("jax", "jaxlib", "flax", "enhanced_unet_tpu"):
     bad = sorted(m for m in loaded if m == pkg or m.startswith(pkg + "."))
     assert not bad, bad
-assert "enhanced_unet_tpu_torch.ops.kernels.mbconv" in loaded
-print("BOUNDARY OK")
+for name in ("enhanced_unet_tpu_torch.ops.kernels.mbconv",
+             "enhanced_unet_tpu_torch.ops.kernels.depthwise",
+             "enhanced_unet_tpu_torch.benchmarks.mbconv_instr"):
+    assert name in walked and name in loaded, name
+print("BOUNDARY OK", len(walked))
 """
+
+
+def _imported_names(path):
+    """Every module name an `import` statement in the file names, at any
+    depth (imports inside functions included)."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    return names
+
+
+_PORT_FILES = sorted(
+    os.path.relpath(os.path.join(d, f), REPO)
+    for d, _, files in os.walk(os.path.join(REPO, "enhanced_unet_tpu_torch"))
+    for f in files if f.endswith(".py")) + ["chip_smoke.py"]
 
 
 def test_import_loads_no_jax_and_nothing_of_the_jax_package():
@@ -53,6 +77,13 @@ def test_import_loads_no_jax_and_nothing_of_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "BOUNDARY OK" in out.stdout
+
+
+@pytest.mark.parametrize("path", _PORT_FILES)
+def test_no_import_of_jax_or_the_jax_package(path):
+    for name in _imported_names(os.path.join(REPO, path)):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "flax", "enhanced_unet_tpu"), (path, name)
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):

@@ -97,6 +97,102 @@ def test_kernels_reject_what_they_do_not_take(cuda):
                                          torch.zeros(4, device=cuda))
 
 
+_DW_SHAPES = [(2, 1, 37, 45), (1, 3, 64, 70), (2, 24, 33, 129)]
+
+
+@pytest.mark.parametrize("shape", _DW_SHAPES)
+def test_dw3x3_kernel_matches_plain(cuda, shape):
+    from enhanced_unet_tpu_torch.ops.kernels import depthwise
+
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(*shape, generator=g, device=cuda).bfloat16()
+    wdw = torch.randn(shape[1], 3, 3, generator=g, device=cuda) * 0.3
+    bdw = torch.randn(shape[1], generator=g, device=cuda) * 0.1
+    before = depthwise.LAUNCHES["dw3x3_bias_silu"]
+    got = depthwise.dw3x3_bias_silu(x, wdw, bdw)
+    torch.cuda.synchronize()
+    assert depthwise.LAUNCHES["dw3x3_bias_silu"] == before + 1
+    want = depthwise.dw3x3_bias_silu_plain(x, wdw, bdw)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert _rel(got, want) <= 2e-2
+
+
+@pytest.mark.parametrize("shape,bh", [((2, 1, 40, 45), 8), ((1, 3, 64, 70), 32),
+                                      ((2, 24, 96, 130), 32)])
+def test_dw_rows_kernel_matches_plain(cuda, shape, bh):
+    from enhanced_unet_tpu_torch.ops.kernels import depthwise
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(*shape, generator=g, device=cuda).bfloat16()
+    wdw = torch.randn(shape[1], 3, 3, generator=g, device=cuda) * 0.3
+    bdw = torch.randn(shape[1], generator=g, device=cuda) * 0.1
+    before = depthwise.LAUNCHES["dw_rows_silu"]
+    got = depthwise.dw_rows_silu(x, wdw, bdw, bh)
+    torch.cuda.synchronize()
+    assert depthwise.LAUNCHES["dw_rows_silu"] == before + 1
+    want = depthwise.dw_rows_silu_plain(x, wdw, bdw, bh)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert _rel(got, want) <= 2e-2
+
+
+@pytest.mark.parametrize("numel,offset", [(16 * 24 * 64 * 64, 0), (8 * 3 + 5, 0),
+                                          (1, 0), (4099, 8), (7, 0)])
+def test_copy_kernel_is_exact(cuda, numel, offset):
+    # offset 8: a view that starts 16 bytes inside its storage; 7 elements:
+    # no whole 16-byte vector, the tail alone
+    from enhanced_unet_tpu_torch.ops.kernels import copy
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(numel + offset, generator=g, device=cuda).bfloat16()[offset:]
+    before = copy.LAUNCHES["copy"]
+    got = copy.copy(x)
+    torch.cuda.synchronize()
+    assert copy.LAUNCHES["copy"] == before + 1
+    assert got.data_ptr() != x.data_ptr()
+    assert torch.equal(got, copy.copy_plain(x))
+
+
+def test_mbconv_proto_on_card_matches_plain(cuda):
+    from enhanced_unet_tpu_torch.benchmarks import mbconv_proto
+    from enhanced_unet_tpu_torch.ops.kernels import mbconv
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    p = mbconv_proto.make_params(g, 8, 48, 8, 2)
+    x = (torch.randn(2, 8, 45, 70, generator=g, device=cuda) * 0.5).bfloat16()
+    before = dict(mbconv.LAUNCHES)
+    got = mbconv_proto.mbconv_proto(x, p, expand=True, residual=True)
+    torch.cuda.synchronize()
+    assert mbconv.LAUNCHES["mbconv_pass1"] == before["mbconv_pass1"] + 1
+    assert mbconv.LAUNCHES["mbconv_pass2"] == before["mbconv_pass2"] + 1
+    want = mbconv.mbconv_infer_nchw_plain(x, mbconv_proto.proto_weights(p, True),
+                                          residual=True)
+    assert _rel(got, want) <= 2e-2
+
+
+def test_bench_kernels_reject_what_they_do_not_take(cuda):
+    from enhanced_unet_tpu_torch.ops.kernels import copy, depthwise
+
+    w, b = torch.zeros(4, 3, 3, device=cuda), torch.zeros(4, device=cuda)
+    calls = (lambda x: depthwise.dw3x3_bias_silu(x, w, b),
+             lambda x: depthwise.dw_rows_silu(x, w, b, 4), copy.copy)
+    bf16 = torch.zeros(2, 4, 8, 8, device=cuda, dtype=torch.bfloat16)
+    strided = torch.zeros(2, 8, 8, 4, device=cuda, dtype=torch.bfloat16).permute(0, 3, 1, 2)
+    meta = torch.empty(2, 4, 8, 8, device="meta", dtype=torch.bfloat16)
+    for call in calls:
+        before = (dict(depthwise.LAUNCHES), dict(copy.LAUNCHES))
+        for other in (torch.float16, torch.float32):
+            with pytest.raises(TypeError):
+                call(bf16.to(other))
+        with pytest.raises(ValueError, match="contiguous"):
+            call(strided)
+        with pytest.raises(ValueError, match="device"):
+            call(meta)
+        assert (dict(depthwise.LAUNCHES), dict(copy.LAUNCHES)) == before
+    with pytest.raises(ValueError, match="aligned"):
+        copy.copy(torch.zeros(64, device=cuda, dtype=torch.bfloat16)[3:])
+    assert copy.LAUNCHES == before[1]
+
+
 def test_tiny_flagship_on_card_matches_cpu(cuda):
     from enhanced_unet_tpu_torch.models import get_model
 
