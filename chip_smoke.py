@@ -9,7 +9,10 @@ Phases (any failure exits non-zero):
  3. hold each kernel against its plain PyTorch version at the shapes the
     serving path gives it (bf16; the conv kernel also fp32 with TF32 off),
     and time kernel (held, and unheld: `wall_ms`, with the host's cost per
-    call), plain version, and the library call where one exists;
+    call), plain version, and the library call where one exists.  K2
+    (`conv3x3_bn_act`) at the four widest serving shapes, each beside its
+    `mma.sync` kernel (the general bf16 path) on the same inputs, and that
+    general path driven once through the public entry;
  3b. the kernel benches (`enhanced_unet_tpu_torch.benchmarks`): every launch
     count set to 0, then the `main()` of `dw_variants`, `mbconv_instr` and
     `mbconv_proto` at their full shapes, which hold each kernel against its
@@ -19,8 +22,16 @@ Phases (any failure exits non-zero):
  4. the slice: `get_model("enhanced_unet")` at full width (EfficientNet-B5
     UNet++ + EfficientNet-B4 DeepLabV3+, bf16, seeded random weights) served
     by an `Evaluator` with TTA: three requests of two 512x512 images; every
-    count set to 0 before it; the serving kernels' counts must move and the
-    benches' kernels' counts must not;
+    count set to 0 before it; the serving kernels' counts (K2's wgmma and
+    small-Cin variants, K1's two passes) must move and every other count
+    must not; the first request records each shape K2 is called at, and
+    no request after it may pack a conv's weights again; a profile;
+ 4b. K2 at every recorded serving shape (66: 22 per forward, three TTA
+    forwards): checked against its plain version, timed (20 calls) beside
+    the plain version, the `mma.sync` kernel, cuDNN + a torch epilogue and
+    cuDNN's channels_last conv alone, and summed over one request
+    (launches x time) beside the same sum of its bounds and the profiled
+    K2 group (`--k2-json PATH` also writes these rows to PATH);
  5. cross-check: one 256x256 image, one view, bf16 on the card against the
     same weights in fp32 on the CPU (plain PyTorch path);
  6. a `{"kernels": [...]}` line, the card line, and the final JSON line.
@@ -50,6 +61,7 @@ def card_line() -> str:
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"bf16": 989e12, "fp32": 67e12}   # dense tensor-core bf16; fp32 CUDA cores
+K2_ITERS = 20                      # calls per K2 timing
 
 
 def bound(bytes_moved: float, ops: float, kind: str):
@@ -98,17 +110,18 @@ def serving_model(**kwargs):
     return model
 
 
-def profile_request(evaluator, imgs, wall_ms: float) -> None:
+def profile_request(evaluator, imgs, wall_ms: float) -> dict:
     """Device time of one request by kernel group and by kernel
     (torch.profiler), and the device's idle share of `wall_ms`, the
-    request's wall time measured without the profiler."""
+    request's wall time measured without the profiler.  Returns the
+    milliseconds by group (empty when nothing was recorded)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         evaluator.predict_semantic_masks(imgs)
         torch.cuda.synchronize()
-    groups, kernels = {}, {}
+    groups, kernels, group_launches = {}, {}, {}
     total = 0.0
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", 0) or getattr(
@@ -122,22 +135,31 @@ def profile_request(evaluator, imgs, wall_ms: float) -> None:
                      t in name.lower() for t in ("conv", "gemm", "sm90", "xmma", "cudnn", "cutlass"))
                  else "other PyTorch kernels")
         groups[group] = groups.get(group, 0.0) + us / 1e3
+        group_launches[group] = group_launches.get(group, 0) + ev.count
         kernels[name] = (kernels.get(name, (0.0, 0))[0] + us / 1e3,
                          kernels.get(name, (0.0, 0))[1] + ev.count)
         total += us / 1e3
     if total <= 0:
         print("profile: no device time recorded (not measured)")
-        return
-    parts = ", ".join(f"{k} {v:.1f} ms ({100 * v / total:.0f}%)"
+        return {}
+    parts = ", ".join(f"{k} {v:.1f} ms ({100 * v / total:.0f}%, {group_launches[k]} launches)"
                       for k, v in sorted(groups.items(), key=lambda kv: -kv[1]))
     print(f"profile of one request: device time {total:.1f} ms of {wall_ms:.1f} ms "
           f"wall (device idle share {1 - total / wall_ms:.2f}): {parts}")
     for name, (ms, count) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]:
         print(f"  {ms:8.3f} ms {count:5d} launches  {name[:110]}")
+    return groups
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    parser = argparse.ArgumentParser(description="Drive the port on one CUDA card.")
+    parser.add_argument("--k2-json", default=None,
+                        help="also write K2's rows at every serving shape to this file")
+    k2_json = parser.parse_args(argv).k2_json
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -148,6 +170,7 @@ def main() -> int:
     from enhanced_unet_tpu_torch.benchmarks import dw_variants, mbconv_instr
     from enhanced_unet_tpu_torch.benchmarks import mbconv_proto as proto
     from enhanced_unet_tpu_torch.benchmarks.microtime import device_ms
+    from enhanced_unet_tpu_torch.models import blocks
     from enhanced_unet_tpu_torch.ops.kernels import KERNEL_SOURCES, build
     from enhanced_unet_tpu_torch.ops.kernels import conv_fused, depthwise, mbconv
     from enhanced_unet_tpu_torch.ops.kernels import copy as copy_k
@@ -187,40 +210,91 @@ def main() -> int:
         y = y.float() * sc[None, :, None, None] + sh[None, :, None, None]
         return torch.relu(y).to(x.dtype) if relu else y.to(x.dtype)
 
+    def conv_bound(n, h, w, cin, cout):
+        # x read and the output written once, the bf16 weights and the fp32
+        # scale/shift once; 2 * 9 * Cin * Cout FLOPs per output pixel
+        return bound(n * h * w * (cin + cout) * 2 + 9 * cin * cout * 2 + cout * 8,
+                     2 * 9 * cin * cout * n * h * w, "bf16")
+
+    def k2_row(shape, relu=True, iters=K2_ITERS):
+        """K2 at one bf16 shape through the packed entry point: checked
+        against its plain version (2e-2 of max |value|), then timed beside
+        the plain version, cuDNN + a torch epilogue (`library_ms`),
+        cuDNN's channels_last bf16 conv alone (`library_conv_ms`) and the
+        `mma.sync` kernel on the same packed weights (`mma_ms`); a wgmma
+        row also gives its tile and the bytes its tiles read from L2."""
+        n, h, w, cin, cout = shape
+        x, wt, sc, sh, relu = args = conv_case(n, h, w, cin, cout, torch.bfloat16, relu)
+        packed = conv_fused.pack_conv3x3(wt, sc, sh, x.dtype, dev)
+        got = conv_fused.fused_conv3x3_bn_relu_packed(x, packed, relu)
+        torch.cuda.synchronize()
+        want = conv_fused.fused_conv3x3_bn_relu_plain(*args)
+        err = (got.float() - want.float()).abs().max().item()
+        rel = err / want.float().abs().max().item()
+        check(rel <= 2e-2, f"conv3x3_bn_act bf16 {shape} rel err {rel}")
+        del got, want
+        xl = x.permute(0, 3, 1, 2)                    # NCHW view, channels_last
+        wl = wt.to(x.dtype).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        b, kind = conv_bound(*shape)
+        kernel = lambda: conv_fused.fused_conv3x3_bn_relu_packed(x, packed, relu)  # noqa: E731
+        tile = l2_read = None
+        if packed.variant == "wgmma":
+            # what the tiles read from L2: per tile and chunk one haloed
+            # input box and nine weight stages (TMA boxes, out-of-range
+            # parts included)
+            bn, mt, kc = conv_fused.wgmma_tile(*shape)
+            tiles = -(-w // 16) * -(-h // (8 * mt)) * -(-cout // bn) * n
+            l2_read = tiles * -(-cin // kc) * ((8 * mt + 2) * 18 * kc * 2 + 9 * bn * kc * 2)
+            tile = f"{8 * mt * 16} px x {bn} ch, {kc}-ch chunks"
+        return dict(
+            shape=f"[{n},{h},{w},{cin}]->{cout} bf16", variant=packed.variant,
+            tile=tile, l2_read_bytes=l2_read,
+            max_abs_err=err, rel_err=rel, ms=device_ms(kernel, iters),
+            wall_ms=device_ms(kernel, iters, held=False),
+            plain_ms=device_ms(lambda: conv_fused.fused_conv3x3_bn_relu_plain(*args), iters),
+            bound_ms=b, bound_by=kind,
+            library_ms=device_ms(lambda: conv_library(*args), iters),
+            library_conv_ms=device_ms(lambda: F.conv2d(xl, wl, padding=1), iters),
+            mma_ms=device_ms(lambda: conv_fused.launch("mma", x, packed, relu), iters)
+            if packed.variant != "mma" else None)
+
+    def print_k2(r):
+        mma = "" if r["mma_ms"] is None else f", mma.sync kernel {r['mma_ms']:.4f} ms"
+        if r["tile"]:
+            mma += f"; tile {r['tile']}, {r['l2_read_bytes'] / 1e6:.1f} MB read from L2"
+        print(f"K2 {r['variant']} {r['shape']}: rel err {r['rel_err']:.3e} (tol 2e-2); "
+              f"kernel {r['ms']:.4f} ms (unheld {r['wall_ms']:.4f}){mma}, plain "
+              f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f} (conv alone "
+              f"{r['library_conv_ms']:.4f}), bound {r['bound_ms']:.4f} ({r['bound_by']})")
+
     k2_shapes = [  # (n, h, w, cin, cout): TTA trio of a 2-image 512^2 request
         (6, 512, 512, 6, 256), (6, 512, 512, 256, 128), (6, 512, 512, 128, 64),
         (6, 256, 256, 256, 32),      # UNet++ x_0_3 conv1 (B5: 64 + 4*48 -> 32)
     ]
-    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
-        for shape in k2_shapes:
-            args = conv_case(*shape, dtype)
-            got = conv_fused.fused_conv3x3_bn_relu(*args)
-            torch.cuda.synchronize()
-            want = conv_fused.fused_conv3x3_bn_relu_plain(*args)
-            err = (got.float() - want.float()).abs().max().item()
-            rel = err / want.float().abs().max().item()
-            print(f"K2 conv3x3_bn_act {str(dtype)[6:]} {shape}: max_abs_err {err:.3e} "
-                  f"rel {rel:.3e} (tol {tol:g})")
-            check(rel <= tol, f"conv3x3_bn_act {dtype} {shape} rel err {rel}")
-            if dtype == torch.bfloat16:
-                n, h, w, cin, cout = shape
-                b, kind = bound(n * h * w * (cin + cout) * 2 + 9 * cin * cout * 2
-                                + cout * 8, 2 * 9 * cin * cout * n * h * w, "bf16")
-                r = dict(
-                    shape=f"[{n},{h},{w},{cin}]->{cout} bf16", max_abs_err=err,
-                    ms=device_ms(lambda: conv_fused.fused_conv3x3_bn_relu(*args), 3),
-                    wall_ms=device_ms(lambda: conv_fused.fused_conv3x3_bn_relu(*args), 3,
-                                      held=False),
-                    plain_ms=device_ms(
-                        lambda: conv_fused.fused_conv3x3_bn_relu_plain(*args), 3),
-                    bound_ms=b, bound_by=kind,
-                    library_ms=device_ms(lambda: conv_library(*args), 3))
-                print(f"K2 timing {r['shape']}: kernel {r['ms']:.4f} ms (unheld "
-                      f"{r['wall_ms']:.4f}), plain {r['plain_ms']:.4f} ms, library "
-                      f"{r['library_ms']:.4f} ms, bound {b:.4f} ms ({kind})")
-                if shape == k2_shapes[1]:
-                    results["conv3x3_bn_act"] = r
-            del got, want, args
+    for shape in k2_shapes:          # fp32 (CUDA cores, TF32 off for the plain version)
+        args = conv_case(*shape, torch.float32)
+        got = conv_fused.fused_conv3x3_bn_relu(*args)
+        torch.cuda.synchronize()
+        want = conv_fused.fused_conv3x3_bn_relu_plain(*args)
+        err = (got.float() - want.float()).abs().max().item()
+        rel = err / want.float().abs().max().item()
+        print(f"K2 conv3x3_bn_act f32 {shape}: max_abs_err {err:.3e} rel {rel:.3e} (tol 1e-4)")
+        check(rel <= 1e-4, f"conv3x3_bn_act f32 {shape} rel err {rel}")
+        del got, want, args
+    for shape in k2_shapes:
+        r = k2_row(shape)
+        print_k2(r)
+        results.setdefault(f"conv3x3_bn_act_{r['variant']}", r)
+    # the general bf16 path (shapes neither wgmma nor smallc takes): one call
+    # of the public entry with the counts at 0, then its row
+    general = (1, 37, 45, 70, 5)
+    reset([conv_fused.LAUNCHES])
+    conv_fused.fused_conv3x3_bn_relu(*conv_case(*general, torch.bfloat16, relu=False))
+    general_launches = conv_fused.LAUNCHES["conv3x3_bn_act_mma"]
+    check(general_launches == 1, f"the general path launched {conv_fused.LAUNCHES}")
+    r = k2_row(general, relu=False)
+    print_k2(r)
+    results["conv3x3_bn_act_mma"] = r
 
     def mbconv_case(n, cin, ratio, cout, h, w, dtype):
         from enhanced_unet_tpu_torch.models import init_random_weights_
@@ -357,11 +431,28 @@ def main() -> int:
     evaluator = Evaluator(model, "enhanced_unet")
     check(evaluator.enable_tta, "the enhanced_unet preset serves with TTA")
     requests = [synthetic_images(2, 512, seed) for seed in range(3)]
+    # the first (cold) request records every shape K2 is called at; every
+    # request counts its weight packs (ConvBNAct packs once, then reuses)
+    k2_calls, packs = {}, []
+    packed_entry, pack = blocks.fused_conv3x3_bn_relu_packed, blocks.pack_conv3x3
+
+    def recording_entry(x, packed, relu=True):
+        key = (tuple(x.shape) + (packed.cout,), relu)
+        k2_calls[key] = k2_calls.get(key, 0) + 1
+        return packed_entry(x, packed, relu)
+
+    def counting_pack(*args):
+        packs[-1] += 1
+        return pack(*args)
+
+    blocks.pack_conv3x3 = counting_pack
     torch.cuda.reset_peak_memory_stats()
     reset(counters)
     times = []
     classes_seen = set()
-    for imgs in requests:
+    for i, imgs in enumerate(requests):
+        blocks.fused_conv3x3_bn_relu_packed = recording_entry if i == 0 else packed_entry
+        packs.append(0)
         t0 = time.perf_counter()
         masks = evaluator.predict_semantic_masks(imgs)
         torch.cuda.synchronize()
@@ -372,16 +463,50 @@ def main() -> int:
         check(sum(counts) == masks.size, "mask values outside {0, 1, 2}")
         classes_seen |= {c for c in range(3) if counts[c]}
         print(f"request: 2x512^2 TTA, {times[-1] * 1e3:.1f} ms, classes {counts}")
+    blocks.pack_conv3x3 = pack
     launches = {**conv_fused.LAUNCHES, **mbconv.LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
     print(f"slice: request ms {[round(t * 1e3, 1) for t in times]}, "
-          f"peak memory {peak} bytes, launches {json.dumps(launches)}")
+          f"peak memory {peak} bytes, launches {json.dumps(launches)}, "
+          f"K2 weight packs per request {packs}")
     check(len(classes_seen) >= 2, f"the cascade decided only {classes_seen}")
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} was not launched by the serving path")
-    off_path = {**depthwise.LAUNCHES, **copy_k.LAUNCHES}
+    serving = ("conv3x3_bn_act_wgmma", "conv3x3_bn_act_smallc", "mbconv_pass1",
+               "mbconv_pass2")
+    for name in serving:
+        check(launches[name] > 0, f"kernel {name} was not launched by the serving path")
+    off_path = {k: v for k, v in {**launches, **depthwise.LAUNCHES,
+                                  **copy_k.LAUNCHES}.items() if k not in serving}
     check(not any(off_path.values()), f"the serving path launched {off_path}")
-    profile_request(evaluator, requests[-1], 1e3 * min(times[1:]))
+    check(packs[0] > 0 and not any(packs[1:]), f"K2 weight packs per request {packs}")
+    groups = profile_request(evaluator, requests[-1], 1e3 * min(times[1:]))
+
+    # ---- 4b. K2 at every shape the serving path gave it ------------------
+    t0 = time.perf_counter()
+    k2_rows = []
+    for (shape, relu), count in k2_calls.items():
+        r = k2_row(shape[:5], relu)
+        r["launches"] = count
+        print_k2(r)
+        k2_rows.append(r)
+    check(sum(r["launches"] for r in k2_rows) * len(requests)
+          == launches["conv3x3_bn_act_wgmma"] + launches["conv3x3_bn_act_smallc"],
+          "the recorded K2 calls are the serving run's")
+    check(all(r["variant"] in ("wgmma", "smallc") for r in k2_rows),
+          "every serving shape reaches the wgmma or the small-Cin kernel")
+    per_req = {k: sum(r["launches"] * r[k] for r in k2_rows)
+               for k in ("ms", "wall_ms", "bound_ms", "mma_ms", "library_ms",
+                         "library_conv_ms", "plain_ms")}
+    print(f"K2 per request ({len(k2_rows)} shapes, {sum(r['launches'] for r in k2_rows)} "
+          f"launches; sum of launches x time): kernel {per_req['ms']:.4f} ms (unheld "
+          f"{per_req['wall_ms']:.4f}), bound {per_req['bound_ms']:.4f} ms, mma.sync "
+          f"kernel {per_req['mma_ms']:.4f}, cuDNN + epilogue {per_req['library_ms']:.4f}, "
+          f"cuDNN conv alone {per_req['library_conv_ms']:.4f}, plain "
+          f"{per_req['plain_ms']:.4f}; profiled K2 group "
+          f"{groups.get('conv3x3_bn_act (K2)', float('nan')):.4f} ms; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if k2_json:
+        with open(k2_json, "w") as f:
+            json.dump({"card": card, "rows": k2_rows, "per_request": per_req}, f, indent=1)
 
     # ---- 5. full-width cross-check against the fp32 CPU plain path ------
     x = torch.from_numpy(synthetic_images(1, 256, 7)) - 0.5
@@ -404,8 +529,12 @@ def main() -> int:
 
     # ---- 6. report -------------------------------------------------------
     meta = {
-        "conv3x3_bn_act": ("enhanced_unet_tpu_torch/csrc/conv3x3_bn_act.cu",
-                           "enhanced_unet_tpu/ops/pallas/conv_fused.py:109"),
+        "conv3x3_bn_act_wgmma": ("enhanced_unet_tpu_torch/csrc/conv3x3_bn_act.cu",
+                                 "enhanced_unet_tpu/ops/pallas/conv_fused.py:109"),
+        "conv3x3_bn_act_smallc": ("enhanced_unet_tpu_torch/csrc/conv3x3_bn_act.cu",
+                                 "enhanced_unet_tpu/ops/pallas/conv_fused.py:109"),
+        "conv3x3_bn_act_mma": ("enhanced_unet_tpu_torch/csrc/conv3x3_bn_act.cu",
+                                 "enhanced_unet_tpu/ops/pallas/conv_fused.py:109"),
         "mbconv_pass1": ("enhanced_unet_tpu_torch/csrc/mbconv.cu",
                          "enhanced_unet_tpu/ops/pallas/mbconv.py:208"),
         "mbconv_pass2": ("enhanced_unet_tpu_torch/csrc/mbconv.cu",
@@ -419,8 +548,9 @@ def main() -> int:
         "copy": ("enhanced_unet_tpu_torch/csrc/copy.cu",
                  "benchmarks/pallas_mbconv_instr.py:76/:117"),
     }
-    # launches: the serving run's for its kernels, the benches' (3b) for theirs
-    path_launches = {**launches, **bench_launches}
+    # launches: the serving run's for its kernels, the benches' (3b) for
+    # theirs, the general path's (phase 3) for K2's mma variant
+    path_launches = {**launches, **bench_launches, "conv3x3_bn_act_mma": general_launches}
     kernels = []
     for name, (source, replaces) in meta.items():
         r = results[name]
@@ -430,6 +560,8 @@ def main() -> int:
                         "wall_ms": r["wall_ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
+                        **({"library_conv_ms": r["library_conv_ms"]}
+                           if "library_conv_ms" in r else {}),
                         "shape": r["shape"]})
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -20,8 +20,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from enhanced_unet_tpu_torch.ops.kernels.conv_fused import (
+    PackedConv3x3,
     fold_bn_params,
-    fused_conv3x3_bn_relu,
+    fused_conv3x3_bn_relu_packed,
+    pack_conv3x3,
 )
 
 
@@ -41,18 +43,39 @@ def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
                         bn.bias, False, 0.0, bn.eps)
 
 
+def packed_conv3x3(layer: nn.Conv2d, bn: nn.BatchNorm2d, dtype: torch.dtype,
+                   device: torch.device) -> PackedConv3x3:
+    """The fused kernel's weights for `layer` + `bn` (BN folded, cast,
+    permuted), packed once and kept on `layer`.  They are packed again when
+    the conv weight or bias or a BN tensor is replaced or edited in place
+    (`load_state_dict`, `.to()`, `weight.mul_`: a new `data_ptr` or
+    `_version`), or for another dtype or device."""
+    tensors = [layer.weight, layer.bias, bn.weight, bn.bias, bn.running_mean,
+               bn.running_var]
+    key = (tuple(None if t is None else (t.data_ptr(), t._version) for t in tensors),
+           bn.eps, dtype, device)
+    cached = layer.__dict__.get("_packed_conv3x3")
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    scale, shift = fold_bn_params(bn.weight, bn.bias, bn.running_mean,
+                                  bn.running_var, bn.eps, layer.bias)
+    packed = pack_conv3x3(layer.weight.permute(2, 3, 1, 0), scale, shift, dtype,
+                          device)
+    layer.__dict__["_packed_conv3x3"] = (key, packed)
+    return packed
+
+
 def conv_bn_act(x: torch.Tensor, layer: nn.Conv2d, bn: nn.BatchNorm2d,
                 relu: bool, dtype: torch.dtype) -> torch.Tensor:
     """Conv -> BN -> optional ReLU.  A 3x3, stride-1, undilated, ungrouped
-    conv goes through the fused conv3x3+BN+ReLU kernel (its plain version
-    on the CPU); any other conv runs as plain PyTorch."""
+    conv goes through the fused conv3x3+BN+ReLU kernel with its weights
+    packed once (its plain version on the CPU); any other conv runs as
+    plain PyTorch."""
     if (layer.kernel_size == (3, 3) and layer.stride == (1, 1)
             and layer.dilation == (1, 1) and layer.groups == 1):
-        scale, shift = fold_bn_params(bn.weight, bn.bias, bn.running_mean,
-                                      bn.running_var, bn.eps, layer.bias)
-        y = fused_conv3x3_bn_relu(x.to(dtype).permute(0, 2, 3, 1),
-                                  layer.weight.permute(2, 3, 1, 0), scale,
-                                  shift, relu=relu)
+        xh = x.to(dtype).permute(0, 2, 3, 1).contiguous()
+        y = fused_conv3x3_bn_relu_packed(
+            xh, packed_conv3x3(layer, bn, dtype, xh.device), relu=relu)
         return y.permute(0, 3, 1, 2)
     y = batch_norm(conv(x, layer, dtype), bn)
     return torch.relu(y) if relu else y

@@ -40,11 +40,32 @@ def _tol(dtype):
     return 2e-2 if dtype == torch.bfloat16 else 1e-4
 
 
+# (n, h, w, cin, cout, relu) -> the bf16 kernel the shape reaches (fp32:
+# always the CUDA-core kernel).  W not a multiple of the 16-column tile,
+# H not one of the tile's rows, a 1-row image, the 128- and 512-pixel
+# tiles of the wgmma kernel, Cout above 128 and Cin not a multiple of 64.
+_CONV_CASES = [
+    ((2, 40, 72, 6, 64, True), "smallc"),
+    ((1, 24, 40, 6, 256, True), "smallc"),          # the head's entry layer
+    ((1, 1, 50, 3, 64, False), "smallc"),
+    ((1, 37, 45, 70, 5, False), "mma"),             # neither takes Cin 70
+    ((2, 64, 64, 128, 64, True), "wgmma"),
+    ((1, 48, 40, 256, 128, False), "wgmma"),
+    ((2, 33, 70, 256, 32, True), "wgmma"),          # ragged W
+    ((2, 29, 45, 88, 48, True), "wgmma"),
+    ((2, 50, 37, 16, 16, False), "wgmma"),         # 16-channel chunks
+    ((2, 40, 45, 32, 16, True), "wgmma"),           # 32-channel chunks
+    ((1, 30, 50, 24, 32, False), "wgmma"),          # a ragged 32-channel chunk
+    ((1, 20, 33, 8, 8, True), "wgmma"),             # Cout 8 of a 16-channel tile
+    ((1, 1, 77, 64, 128, True), "wgmma"),           # a 1-row image
+    ((4, 256, 256, 32, 32, True), "wgmma"),         # 512-pixel tiles
+    ((2, 24, 24, 688, 256, True), "wgmma"),         # 128-pixel tiles, Cout 256
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("shape", [(2, 40, 72, 6, 64, True),
-                                   (1, 37, 45, 70, 5, False),
-                                   (2, 64, 64, 128, 64, True)])
-def test_conv3x3_kernel_matches_plain(cuda, dtype, shape):
+@pytest.mark.parametrize("shape,variant", _CONV_CASES)
+def test_conv3x3_kernel_matches_plain(cuda, dtype, shape, variant):
     from enhanced_unet_tpu_torch.ops.kernels import conv_fused
 
     n, h, w, cin, cout, relu = shape
@@ -53,10 +74,14 @@ def test_conv3x3_kernel_matches_plain(cuda, dtype, shape):
     wt = torch.randn(3, 3, cin, cout, generator=g, device=cuda) / (9 * cin) ** 0.5
     sc = torch.rand(cout, generator=g, device=cuda) + 0.5
     sh = torch.randn(cout, generator=g, device=cuda) * 0.1
-    before = conv_fused.LAUNCHES["conv3x3_bn_act"]
+    if dtype == torch.float32:
+        variant = "f32"
+    assert conv_fused.variant_for(cin, cout, dtype) == variant
+    before = dict(conv_fused.LAUNCHES)
     got = conv_fused.fused_conv3x3_bn_relu(x, wt, sc, sh, relu)
     torch.cuda.synchronize()
-    assert conv_fused.LAUNCHES["conv3x3_bn_act"] == before + 1
+    moved = {k: v - before[k] for k, v in conv_fused.LAUNCHES.items() if v != before[k]}
+    assert moved == {f"conv3x3_bn_act_{variant}": 1}
     want = conv_fused.fused_conv3x3_bn_relu_plain(x, wt, sc, sh, relu)
     assert got.dtype == dtype and got.shape == want.shape
     assert _rel(got, want) <= _tol(dtype)
@@ -90,11 +115,22 @@ def test_mbconv_kernel_matches_plain(cuda, dtype, cin, ratio, cout, residual):
 def test_kernels_reject_what_they_do_not_take(cuda):
     from enhanced_unet_tpu_torch.ops.kernels import conv_fused
 
-    x = torch.zeros(1, 8, 8, 4, device=cuda, dtype=torch.float16)
+    w, ones, zeros = (torch.zeros(3, 3, 16, 8, device=cuda), torch.ones(8, device=cuda),
+                      torch.zeros(8, device=cuda))
+    before = dict(conv_fused.LAUNCHES)
     with pytest.raises(TypeError):
-        conv_fused.fused_conv3x3_bn_relu(x, torch.zeros(3, 3, 4, 4, device=cuda),
-                                         torch.ones(4, device=cuda),
-                                         torch.zeros(4, device=cuda))
+        conv_fused.fused_conv3x3_bn_relu(
+            torch.zeros(1, 8, 8, 16, device=cuda, dtype=torch.float16), w, ones, zeros)
+    x = torch.zeros(1, 16, 8, 8, device=cuda, dtype=torch.bfloat16).permute(0, 2, 3, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv_fused.fused_conv3x3_bn_relu(x, w, ones, zeros)
+    on_cpu = conv_fused.pack_conv3x3(w.cpu(), ones.cpu(), zeros.cpu(), torch.bfloat16, "cpu")
+    with pytest.raises(ValueError, match="device"):
+        conv_fused.fused_conv3x3_bn_relu_packed(x.contiguous(), on_cpu)
+    for_f32 = conv_fused.pack_conv3x3(w, ones, zeros, torch.float32, cuda)
+    with pytest.raises(TypeError, match="packed"):
+        conv_fused.fused_conv3x3_bn_relu_packed(x.contiguous(), for_f32)
+    assert conv_fused.LAUNCHES == before
 
 
 _DW_SHAPES = [(2, 1, 37, 45), (1, 3, 64, 70), (2, 24, 33, 129)]
