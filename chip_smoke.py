@@ -12,26 +12,38 @@ Phases (any failure exits non-zero):
     call), plain version, and the library call where one exists.  K2
     (`conv3x3_bn_act`) at the four widest serving shapes, each beside its
     `mma.sync` kernel (the general bf16 path) on the same inputs, and that
-    general path driven once through the public entry;
+    general path driven once through the public entry.  K1 (`mbconv`) at
+    the two stage-0 serving shapes on channels_last inputs through its
+    `nhwc` kernels, each pass beside the `nchw` kernels on an NCHW copy of
+    the same values and the library's channels_last block (several
+    calls), and an expand-6 block on the `nchw` kernels;
  3b. the kernel benches (`enhanced_unet_tpu_torch.benchmarks`): every launch
     count set to 0, then the `main()` of `dw_variants`, `mbconv_instr` and
     `mbconv_proto` at their full shapes, which hold each kernel against its
     plain version and time it; the depthwise and copy counts, and the MBConv
-    kernels' count during `mbconv_proto`'s run, must move.  The benches'
+    kernels' count during `mbconv_proto`'s run, must move (B1 stage 0
+    reaches K1's `nhwc` kernels, stage 1 the `nchw` ones).  The benches'
     rows give the kernels' entries and the copy's measured bandwidth;
  4. the slice: `get_model("enhanced_unet")` at full width (EfficientNet-B5
     UNet++ + EfficientNet-B4 DeepLabV3+, bf16, seeded random weights) served
     by an `Evaluator` with TTA: three requests of two 512x512 images; every
     count set to 0 before it; the serving kernels' counts (K2's wgmma and
-    small-Cin variants, K1's two passes) must move and every other count
-    must not; the first request records each shape K2 is called at, and
-    no request after it may pack a conv's weights again; a profile;
+    small-Cin variants, K1's two `nhwc` passes) must move and every other
+    count (K1's `nchw` kernels among them) must not; the first request
+    records each shape K2 and K1 are called at, and no request after it may
+    pack a conv's weights or fold an MBConv block's again; every K1 input
+    must come channels_last with its folded weights already on the card; a
+    profile;
  4b. K2 at every recorded serving shape (66: 22 per forward, three TTA
     forwards): checked against its plain version, timed (20 calls) beside
     the plain version, the `mma.sync` kernel, cuDNN + a torch epilogue and
     cuDNN's channels_last conv alone, and summed over one request
     (launches x time) beside the same sum of its bounds and the profiled
     K2 group (`--k2-json PATH` also writes these rows to PATH);
+ 4c. K1 at every recorded serving shape (6: 2 per forward; 30 launches a
+    request): each pass checked against its plain version and timed beside
+    it, the `nchw` kernels and the library block, and summed over one
+    request beside the bounds' sum and the profiled K1 group;
  5. cross-check: one 256x256 image, one view, bf16 on the card against the
     same weights in fp32 on the CPU (plain PyTorch path);
  6. a `{"kernels": [...]}` line, the card line, and the final JSON line.
@@ -62,6 +74,7 @@ def card_line() -> str:
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"bf16": 989e12, "fp32": 67e12}   # dense tensor-core bf16; fp32 CUDA cores
 K2_ITERS = 20                      # calls per K2 timing
+K1_ITERS = 20                      # calls per K1 timing
 
 
 def bound(bytes_moved: float, ops: float, kind: str):
@@ -130,7 +143,7 @@ def profile_request(evaluator, imgs, wall_ms: float) -> dict:
             continue
         name = ev.key
         group = ("conv3x3_bn_act (K2)" if "conv3x3_bn_act" in name else
-                 "mbconv (K1)" if "mbconv_pass" in name else
+                 "mbconv (K1)" if "mbconv" in name else
                  "cuDNN/cuBLAS conv and matmul" if any(
                      t in name.lower() for t in ("conv", "gemm", "sm90", "xmma", "cudnn", "cutlass"))
                  else "other PyTorch kernels")
@@ -170,7 +183,7 @@ def main(argv=None) -> int:
     from enhanced_unet_tpu_torch.benchmarks import dw_variants, mbconv_instr
     from enhanced_unet_tpu_torch.benchmarks import mbconv_proto as proto
     from enhanced_unet_tpu_torch.benchmarks.microtime import device_ms
-    from enhanced_unet_tpu_torch.models import blocks
+    from enhanced_unet_tpu_torch.models import blocks, encoders
     from enhanced_unet_tpu_torch.ops.kernels import KERNEL_SOURCES, build
     from enhanced_unet_tpu_torch.ops.kernels import conv_fused, depthwise, mbconv
     from enhanced_unet_tpu_torch.ops.kernels import copy as copy_k
@@ -297,13 +310,102 @@ def main(argv=None) -> int:
     results["conv3x3_bn_act_mma"] = r
 
     def mbconv_case(n, cin, ratio, cout, h, w, dtype):
+        """A seeded fused block's folded weights and a channels_last input,
+        as the serving path hands K1 its stage-0 tensors."""
         from enhanced_unet_tpu_torch.models import init_random_weights_
         from enhanced_unet_tpu_torch.models.encoders import MBConvBlock
 
         blk = MBConvBlock(cin, cout, ratio, 1, 3, fused=True, dtype=dtype)
         init_random_weights_(blk, 1).eval().to(dev)
-        x = torch.randn(n, cin, h, w, generator=g, device=dev).to(dtype)
+        x = torch.randn(n, h, w, cin, generator=g, device=dev).to(dtype).permute(0, 3, 1, 2)
         return x, blk.fold(), blk.residual
+
+    def k1_rows(x, p, res, iters=K1_ITERS):
+        """K1's two passes at one shape on the kernels `variant_for` picks
+        (the `nhwc` ones read x's channels_last memory, the `nchw` ones an
+        NCHW copy): pass 1's sums checked within 1e-3 and pass 2's output
+        within 2e-2 of max |value| of the plain version (pass 2 from the
+        plain sums' gated weights), then timed beside the plain version and, for
+        `nhwc`, the `nchw` kernels on an NCHW copy of the same values
+        (`nchw_ms`), the kernel forced to 8- and to 16-row tiles
+        (`rows_ms`; `ms` is at the rows `nhwc_tile_rows` picks) and the
+        library's channels_last block, several PyTorch calls for both
+        passes and the gate (`library_block_ms`, on both rows)."""
+        n, cin, h, w = x.shape
+        mid, cout = p.wdw.shape[0], p.wproj.shape[1]
+        expand = p.wexp is not None
+        variant = mbconv.variant_for(x, p)
+        xc = x.contiguous()
+        if variant == "nhwc":
+            check(x.is_contiguous(memory_format=torch.channels_last), "a channels_last input")
+            pass1, pass2 = mbconv.mbconv_nhwc_pass1, mbconv.mbconv_nhwc_pass2
+        else:
+            x, pass1, pass2 = xc, mbconv.mbconv_pass1, mbconv.mbconv_pass2
+        sums = pass1(x, p)
+        want1 = mbconv.mbconv_pass1_plain(x, p)
+        err1 = (sums - want1).abs().max().item()
+        rel1 = err1 / want1.abs().max().item()
+        check(rel1 <= 1e-3, f"K1 {variant} pass 1 {tuple(x.shape)} sums rel err {rel1}")
+        wpp = mbconv.se_gated_projection(want1, p, h * w, x.dtype)
+        got = pass2(x, p, wpp, res)
+        torch.cuda.synchronize()
+        want = mbconv.mbconv_pass2_plain(x, p, wpp, res)
+        err2 = (got.float() - want.float()).abs().max().item()
+        rel2 = err2 / want.float().abs().max().item()
+        check(rel2 <= 2e-2, f"K1 {variant} pass 2 {tuple(x.shape)} rel err {rel2}")
+        del sums, got, want
+        # per pixel: expand 2*cin*mid (+ bias, SiLU ~5*mid), depthwise
+        # 18*mid (+ bias, SiLU ~5*mid); pass 1 adds the sum (mid), pass 2
+        # the projection 2*mid*cout (+ bias, residual 2*cout)
+        hw = n * h * w
+        ops = (2 * cin + 5) * mid * expand + 23 * mid
+        w_bytes = (mid * cin * 2 + mid * 4) * expand + mid * (9 * 2 + 4)
+        b1, by1 = bound(hw * cin * 2 + w_bytes + n * mid * 4, hw * (ops + mid), "bf16")
+        b2, by2 = bound(hw * (cin + cout) * 2 + w_bytes + n * mid * cout * 2 + cout * 4,
+                        hw * (ops + 2 * mid * cout + 2 * cout), "bf16")
+        nhwc = variant == "nhwc"
+        library = None
+        if nhwc:
+            xh, lp = x.permute(0, 2, 3, 1), p._asdict()
+            library = device_ms(lambda: proto.mbconv_nhwc_library(
+                xh, lp, expand=False, residual=res), iters)
+
+        def at_rows(th, kernel):
+            # the kernel's time with `nhwc_tile_rows` answering `th`
+            pick, mbconv.nhwc_tile_rows = mbconv.nhwc_tile_rows, lambda *a: th
+            try:
+                return device_ms(kernel, iters)
+            finally:
+                mbconv.nhwc_tile_rows = pick
+
+        def row(shape, err, rel, kernel, plain, nchw_kernel, b, by):
+            return dict(
+                shape=shape, variant=variant, max_abs_err=err, rel_err=rel,
+                ms=device_ms(kernel, iters), wall_ms=device_ms(kernel, iters, held=False),
+                plain_ms=device_ms(plain, iters),
+                nchw_ms=device_ms(nchw_kernel, iters) if nhwc else None,
+                rows_ms={th: at_rows(th, kernel) for th in (8, 16)} if nhwc else None,
+                bound_ms=b, bound_by=by, library_ms=None, library_block_ms=library)
+
+        what = f"[{n},{cin},{h},{w}] mid {mid}"
+        r1 = row(f"{what} bf16", err1, rel1, lambda: pass1(x, p),
+                 lambda: mbconv.mbconv_pass1_plain(x, p),
+                 lambda: mbconv.mbconv_pass1(xc, p), b1, by1)
+        r2 = row(f"{what} ->{cout}{' residual' if res else ''} bf16", err2, rel2,
+                 lambda: pass2(x, p, wpp, res),
+                 lambda: mbconv.mbconv_pass2_plain(x, p, wpp, res),
+                 lambda: mbconv.mbconv_pass2(xc, p, wpp, res), b2, by2)
+        return r1, r2
+
+    def print_k1(r, what):
+        nchw = "" if r["nchw_ms"] is None else (
+            f" (8-row tiles {r['rows_ms'][8]:.4f}, 16-row {r['rows_ms'][16]:.4f}), "
+            f"nchw kernel {r['nchw_ms']:.4f}")
+        lib = ("" if r["library_block_ms"] is None else
+               f", library block (both passes, several calls) {r['library_block_ms']:.4f}")
+        print(f"K1 {r['variant']} {what} {r['shape']}: rel err {r['rel_err']:.3e}; kernel "
+              f"{r['ms']:.4f} ms (unheld {r['wall_ms']:.4f}){nchw}, plain {r['plain_ms']:.4f}"
+              f"{lib}, bound {r['bound_ms']:.4f} ({r['bound_by']})")
 
     k1_shapes = [  # stage-0 blocks at 256^2 (512^2 input), TTA trio batch 6
         (6, 48, 1, 24, 256, 256), (6, 24, 1, 24, 256, 256),
@@ -312,53 +414,25 @@ def main(argv=None) -> int:
     with torch.no_grad():
         for shape in k1_shapes:
             x, p, res = mbconv_case(*shape, torch.bfloat16)
-            got = mbconv.mbconv_infer_nchw(x, p, residual=res)
+            variant = mbconv.variant_for(x, p)
+            check(variant == ("nhwc" if shape[2] == 1 else "nchw"), f"K1 {shape} -> {variant}")
+            got = mbconv.mbconv_infer_nchw(x, p, residual=res)     # the entry
             torch.cuda.synchronize()
             want = mbconv.mbconv_infer_nchw_plain(x, p, residual=res)
             err = (got.float() - want.float()).abs().max().item()
             rel = err / want.float().abs().max().item()
-            print(f"K1 mbconv bf16 {shape} residual={res}: max_abs_err {err:.3e} "
-                  f"rel {rel:.3e} (tol 2e-2)")
+            print(f"K1 mbconv bf16 {shape} residual={res} ({variant}): max_abs_err "
+                  f"{err:.3e} rel {rel:.3e} (tol 2e-2)")
             check(rel <= 2e-2, f"mbconv {shape} rel err {rel}")
-            n, cin, ratio, cout, h, w = shape
-            mid, hw = cin * ratio, n * h * w
-            sums = mbconv.mbconv_pass1(x, p)
-            want1 = mbconv.mbconv_pass1_plain(x, p)
-            err1 = (sums - want1).abs().max().item()
-            check(err1 <= 1e-3 * want1.abs().max().item(),
-                  f"mbconv pass 1 sums rel err {err1}")
-            wpp = mbconv.se_gated_projection(want1, p, h * w, x.dtype)
-            # per pixel: expand 2*cin*mid (+ bias, SiLU ~5*mid), depthwise
-            # 18*mid (+ bias, SiLU ~5*mid); pass 1 adds the sum (mid), pass 2
-            # the projection 2*mid*cout (+ bias, residual 2*cout)
-            expand = ratio != 1
-            ops = (2 * cin + 5) * mid * expand + 23 * mid
-            w_bytes = (mid * cin * 2 + mid * 4) * expand + mid * (9 * 2 + 4)
-            b1, k1 = bound(hw * cin * 2 + w_bytes + n * mid * 4,
-                           hw * (ops + mid), "bf16")
-            b2, k2 = bound(hw * (cin + cout) * 2 + w_bytes + n * mid * cout * 2
-                           + cout * 4, hw * (ops + 2 * mid * cout + 2 * cout),
-                           "bf16")
-            r1 = dict(shape=f"[{n},{cin},{h},{w}] mid {mid} bf16", max_abs_err=err1,
-                      ms=device_ms(lambda: mbconv.mbconv_pass1(x, p), 5),
-                      wall_ms=device_ms(lambda: mbconv.mbconv_pass1(x, p), 5, held=False),
-                      plain_ms=device_ms(lambda: mbconv.mbconv_pass1_plain(x, p), 5),
-                      bound_ms=b1, bound_by=k1, library_ms=None)
-            r2 = dict(shape=f"[{n},{cin},{h},{w}] mid {mid} ->{cout}"
-                            f"{' residual' if res else ''} bf16",
-                      max_abs_err=err,
-                      ms=device_ms(lambda: mbconv.mbconv_pass2(x, p, wpp, res), 5),
-                      wall_ms=device_ms(lambda: mbconv.mbconv_pass2(x, p, wpp, res), 5,
-                                        held=False),
-                      plain_ms=device_ms(lambda: mbconv.mbconv_pass2_plain(x, p, wpp, res), 5),
-                      bound_ms=b2, bound_by=k2, library_ms=None)
-            for name, r in (("pass 1", r1), ("pass 2", r2)):
-                print(f"K1 {name} timing {r['shape']}: kernel {r['ms']:.4f} ms (unheld "
-                      f"{r['wall_ms']:.4f}), plain {r['plain_ms']:.4f} ms, bound "
-                      f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
-            if shape == k1_shapes[1]:
+            del got, want
+            r1, r2 = k1_rows(x, p, res)
+            print_k1(r1, "pass 1")
+            print_k1(r2, "pass 2")
+            if shape == k1_shapes[0]:
+                results["mbconv_nhwc_pass1"], results["mbconv_nhwc_pass2"] = r1, r2
+            elif shape == k1_shapes[2]:
                 results["mbconv_pass1"], results["mbconv_pass2"] = r1, r2
-            del got, want, x, p, sums, want1, wpp
+            del x, p
 
     # ---- 3b. the kernel benches -------------------------------------------
     # each bench checks its kernels against their plain versions and times
@@ -372,6 +446,7 @@ def main(argv=None) -> int:
         before = sum(mbconv.LAUNCHES.values())
         rows += proto.main()
         proto_launches = sum(mbconv.LAUNCHES.values()) - before
+    bench_mbconv = dict(mbconv.LAUNCHES)
     bench_launches = {**depthwise.LAUNCHES, **copy_k.LAUNCHES,
                       "mbconv_proto": proto_launches}
     print(f"benches: {time.perf_counter() - t0:.2f} s, launches "
@@ -445,14 +520,38 @@ def main(argv=None) -> int:
         packs[-1] += 1
         return pack(*args)
 
+    # K1 likewise: the first request records each (input shape, Cout,
+    # residual) with one block's folded weights, and whether every input
+    # came channels_last and every folded weight sat on the card in its
+    # kernel dtype (so the wrapper copies nothing); every request counts
+    # its folds (MBConvBlock folds once, then reuses)
+    k1_calls, folds, k1_inputs = {}, [], set()
+    k1_entry, fold = encoders.mbconv_infer_nchw, encoders.fold_mbconv_weights
+
+    def recording_k1(x, p, residual):
+        key = (tuple(x.shape), p.wproj.shape[1], residual)
+        k1_calls.setdefault(key, [0, p])[0] += 1
+        k1_inputs.add((x.is_contiguous(memory_format=torch.channels_last),
+                       p.wdw.dtype == x.dtype and all(
+                           t.device == x.device and t.is_contiguous()
+                           for t in (p.wdw, p.bdw, p.bproj))))
+        return k1_entry(x, p, residual=residual)
+
+    def counting_fold(*args, **kwargs):
+        folds[-1] += 1
+        return fold(*args, **kwargs)
+
     blocks.pack_conv3x3 = counting_pack
+    encoders.fold_mbconv_weights = counting_fold
     torch.cuda.reset_peak_memory_stats()
     reset(counters)
     times = []
     classes_seen = set()
     for i, imgs in enumerate(requests):
         blocks.fused_conv3x3_bn_relu_packed = recording_entry if i == 0 else packed_entry
+        encoders.mbconv_infer_nchw = recording_k1 if i == 0 else k1_entry
         packs.append(0)
+        folds.append(0)
         t0 = time.perf_counter()
         masks = evaluator.predict_semantic_masks(imgs)
         torch.cuda.synchronize()
@@ -464,20 +563,27 @@ def main(argv=None) -> int:
         classes_seen |= {c for c in range(3) if counts[c]}
         print(f"request: 2x512^2 TTA, {times[-1] * 1e3:.1f} ms, classes {counts}")
     blocks.pack_conv3x3 = pack
+    encoders.mbconv_infer_nchw, encoders.fold_mbconv_weights = k1_entry, fold
     launches = {**conv_fused.LAUNCHES, **mbconv.LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
     print(f"slice: request ms {[round(t * 1e3, 1) for t in times]}, "
           f"peak memory {peak} bytes, launches {json.dumps(launches)}, "
-          f"K2 weight packs per request {packs}")
+          f"K2 weight packs per request {packs}, K1 weight folds per request {folds}")
     check(len(classes_seen) >= 2, f"the cascade decided only {classes_seen}")
-    serving = ("conv3x3_bn_act_wgmma", "conv3x3_bn_act_smallc", "mbconv_pass1",
-               "mbconv_pass2")
+    serving = ("conv3x3_bn_act_wgmma", "conv3x3_bn_act_smallc", "mbconv_nhwc_pass1",
+               "mbconv_nhwc_pass2")
     for name in serving:
         check(launches[name] > 0, f"kernel {name} was not launched by the serving path")
     off_path = {k: v for k, v in {**launches, **depthwise.LAUNCHES,
                                   **copy_k.LAUNCHES}.items() if k not in serving}
     check(not any(off_path.values()), f"the serving path launched {off_path}")
     check(packs[0] > 0 and not any(packs[1:]), f"K2 weight packs per request {packs}")
+    k1_per_request = sum(c for c, _ in k1_calls.values())
+    check(launches["mbconv_nhwc_pass1"] == launches["mbconv_nhwc_pass2"]
+          == k1_per_request * len(requests), "the recorded K1 calls are the serving run's")
+    check(folds[0] > 0 and not any(folds[1:]), f"K1 weight folds per request {folds}")
+    check(k1_inputs == {(True, True)},
+          "every K1 input channels_last and every folded weight in place on the card")
     groups = profile_request(evaluator, requests[-1], 1e3 * min(times[1:]))
 
     # ---- 4b. K2 at every shape the serving path gave it ------------------
@@ -508,6 +614,28 @@ def main(argv=None) -> int:
         with open(k2_json, "w") as f:
             json.dump({"card": card, "rows": k2_rows, "per_request": per_req}, f, indent=1)
 
+    # ---- 4c. K1 at every shape the serving path gave it ------------------
+    t0 = time.perf_counter()
+    k1_rows_all, k1_library = [], 0.0
+    with torch.no_grad():
+        for ((n, c, h, w), cout, res), (count, p) in k1_calls.items():
+            x = torch.randn(n, h, w, c, generator=g, device=dev).bfloat16().permute(0, 3, 1, 2)
+            check(mbconv.variant_for(x, p) == "nhwc", f"K1 serving shape {(n, c, h, w)} is nhwc")
+            for r, what in zip(k1_rows(x, p, res), ("pass 1", "pass 2")):
+                r["launches"] = count
+                print_k1(r, what)
+                k1_rows_all.append(r)
+            k1_library += count * r["library_block_ms"]
+            del x
+    k1_req = {k: sum(r["launches"] * r[k] for r in k1_rows_all)
+              for k in ("ms", "wall_ms", "bound_ms", "nchw_ms", "plain_ms")}
+    print(f"K1 per request ({len(k1_calls)} shapes, {2 * k1_per_request} launches; sum of "
+          f"launches x time): kernel {k1_req['ms']:.4f} ms (unheld {k1_req['wall_ms']:.4f}), "
+          f"bound {k1_req['bound_ms']:.4f} ms, nchw kernels {k1_req['nchw_ms']:.4f}, plain "
+          f"{k1_req['plain_ms']:.4f}, library block (several calls, both passes and the "
+          f"gate) {k1_library:.4f}; profiled K1 group "
+          f"{groups.get('mbconv (K1)', float('nan')):.4f} ms; {time.perf_counter() - t0:.1f} s")
+
     # ---- 5. full-width cross-check against the fp32 CPU plain path ------
     x = torch.from_numpy(synthetic_images(1, 256, 7)) - 0.5
     with torch.no_grad():
@@ -535,11 +663,15 @@ def main(argv=None) -> int:
                                  "enhanced_unet_tpu/ops/pallas/conv_fused.py:109"),
         "conv3x3_bn_act_mma": ("enhanced_unet_tpu_torch/csrc/conv3x3_bn_act.cu",
                                  "enhanced_unet_tpu/ops/pallas/conv_fused.py:109"),
+        "mbconv_nhwc_pass1": ("enhanced_unet_tpu_torch/csrc/mbconv_nhwc.cu",
+                              "enhanced_unet_tpu/ops/pallas/mbconv.py:208"),
+        "mbconv_nhwc_pass2": ("enhanced_unet_tpu_torch/csrc/mbconv_nhwc.cu",
+                              "enhanced_unet_tpu/ops/pallas/mbconv.py:233"),
         "mbconv_pass1": ("enhanced_unet_tpu_torch/csrc/mbconv.cu",
                          "enhanced_unet_tpu/ops/pallas/mbconv.py:208"),
         "mbconv_pass2": ("enhanced_unet_tpu_torch/csrc/mbconv.cu",
                          "enhanced_unet_tpu/ops/pallas/mbconv.py:233"),
-        "mbconv_proto": ("enhanced_unet_tpu_torch/csrc/mbconv.cu",
+        "mbconv_proto": ("enhanced_unet_tpu_torch/csrc/mbconv_nhwc.cu",
                          "benchmarks/pallas_mbconv_proto.py:137/:162"),
         "dw3x3_bias_silu": ("enhanced_unet_tpu_torch/csrc/depthwise.cu",
                             "benchmarks/pallas_dw_variants.py:127/:131/:135/:145"),
@@ -549,8 +681,11 @@ def main(argv=None) -> int:
                  "benchmarks/pallas_mbconv_instr.py:76/:117"),
     }
     # launches: the serving run's for its kernels, the benches' (3b) for
-    # theirs, the general path's (phase 3) for K2's mma variant
-    path_launches = {**launches, **bench_launches, "conv3x3_bn_act_mma": general_launches}
+    # theirs (K1's `nchw` kernels: B1 stage 1 and B2's passes), the general
+    # path's (phase 3) for K2's mma variant
+    path_launches = {**launches, **bench_launches, "conv3x3_bn_act_mma": general_launches,
+                     "mbconv_pass1": bench_mbconv["mbconv_pass1"],
+                     "mbconv_pass2": bench_mbconv["mbconv_pass2"]}
     kernels = []
     for name, (source, replaces) in meta.items():
         r = results[name]
@@ -560,8 +695,8 @@ def main(argv=None) -> int:
                         "wall_ms": r["wall_ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
-                        **({"library_conv_ms": r["library_conv_ms"]}
-                           if "library_conv_ms" in r else {}),
+                        **{k: r[k] for k in ("library_conv_ms", "library_block_ms", "nchw_ms")
+                           if k in r},
                         "shape": r["shape"]})
     print(json.dumps({"kernels": kernels}))
     print(card)

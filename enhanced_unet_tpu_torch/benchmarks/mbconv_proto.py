@@ -10,8 +10,9 @@ rounding points: the expand output cast to bf16, bf16 taps, an fp32
 depthwise epilogue, a cast before the projection, bf16 gated weights.  They
 differ from it only in TPU layout (a W+2 padded slab, `wdw` replicated
 along the lanes, row slabs of 32).  So the port runs them as the port's
-MBConv kernels (`ops/kernels/mbconv.py`, `csrc/mbconv.cu`): `mbconv_proto`
-only changes the parameter dict into `MBConvWeights`.
+MBConv kernels (`ops/kernels/mbconv.py`: stage 0 on `csrc/mbconv_nhwc.cu`,
+stage 1, an expand block, on `csrc/mbconv.cu`): `mbconv_proto` only
+changes the parameter dict into `MBConvWeights`.
 
 The parameter dict in the port's layout: `wexp` [mid,cin] bf16, `bexp` [mid],
 `wdw` [mid,3,3] bf16, `bdw` [mid], `se_w1` [mid,se_c], `se_b1` [se_c],
@@ -39,6 +40,7 @@ from enhanced_unet_tpu_torch.ops.kernels.mbconv import (
     MBConvWeights,
     mbconv_infer_nchw,
     mbconv_infer_nchw_plain,
+    variant_for,
 )
 
 DT = torch.bfloat16
@@ -134,11 +136,15 @@ def run_case(name: str, n: int, cin: int, mid: int, cout: int, h: int, w: int,
     """One case's row (`microtime.kernel_row`), printed: the kernels on NCHW
     against the plain K1 path (raises above `PLAIN_TOL`) and against the
     library's channels_last block (raises above `CHECK_TOL`), then their
-    times and the library's `speedup` over the kernels."""
+    times and the library's `speedup` over the kernels.  The kernels get the
+    memory format their variant reads: channels_last for `nhwc` (stage 0),
+    contiguous NCHW for `nchw`."""
     g = torch.Generator(device=device).manual_seed(0)
     p = make_params(g, cin, mid, cout, max(1, cin // 4))
     xh = (torch.randn(n, h, w, cin, generator=g, device=device) * 0.5).to(DT)
-    xc = xh.permute(0, 3, 1, 2).contiguous()
+    xc = xh.permute(0, 3, 1, 2)                      # channels_last NCHW view
+    if variant_for(xc, proto_weights(p, expand)) == "nchw":
+        xc = xc.contiguous()
     row = kernel_row(
         name, lambda: mbconv_proto(xc, p, expand=expand, residual=True),
         lambda: mbconv_infer_nchw_plain(xc, proto_weights(p, expand), residual=True),

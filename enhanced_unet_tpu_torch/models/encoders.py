@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from enhanced_unet_tpu_torch.models.blocks import batch_norm, conv
 from enhanced_unet_tpu_torch.ops.kernels.mbconv import (
+    MBConvWeights,
     fold_mbconv_weights,
     mbconv_infer_nchw,
 )
@@ -119,20 +120,38 @@ class MBConvBlock(nn.Module):
         self.fused = fused
         self.dtype = dtype
 
-    def fold(self):
-        """Folded weights for the fused kernel."""
+    def fold(self) -> MBConvWeights:
+        """Folded weights for the fused kernel, on the parameters' device
+        in the compute dtype, folded once and kept on the module.  They are
+        folded again when a conv or BN tensor is replaced or edited in place
+        (`load_state_dict`, `.to()`, `running_mean.add_`: a new `data_ptr`
+        or `_version`), or for another dtype or device."""
         def stats(bn):
             return bn.weight, bn.bias, bn.running_mean, bn.running_var
 
         expand = self.expand_ratio != 1
-        return fold_mbconv_weights(
-            self._expand_conv.weight if expand else None,
-            stats(self._bn0) if expand else None,
-            self._depthwise_conv.weight, stats(self._bn1),
-            (self._se_reduce.weight, self._se_reduce.bias),
-            (self._se_expand.weight, self._se_expand.bias),
-            self._project_conv.weight, stats(self._bn2),
-            eps=_BN_EPS, dtype=self.dtype)
+        bns = [self._bn0, self._bn1, self._bn2] if expand else [self._bn1, self._bn2]
+        tensors = [self._depthwise_conv.weight, self._se_reduce.weight,
+                   self._se_reduce.bias, self._se_expand.weight, self._se_expand.bias,
+                   self._project_conv.weight] + [t for bn in bns for t in stats(bn)]
+        if expand:
+            tensors.append(self._expand_conv.weight)
+        key = (tuple((t.data_ptr(), t._version) for t in tensors), self.dtype,
+               self._depthwise_conv.weight.device)
+        cached = self.__dict__.get("_folded")
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        with torch.inference_mode(False), torch.no_grad():
+            folded = fold_mbconv_weights(
+                self._expand_conv.weight if expand else None,
+                stats(self._bn0) if expand else None,
+                self._depthwise_conv.weight, stats(self._bn1),
+                (self._se_reduce.weight, self._se_reduce.bias),
+                (self._se_expand.weight, self._se_expand.bias),
+                self._project_conv.weight, stats(self._bn2),
+                eps=_BN_EPS, dtype=self.dtype)
+        self.__dict__["_folded"] = (key, folded)
+        return folded
 
     def forward(self, x):
         if self.fused:
@@ -202,7 +221,7 @@ class EfficientNetEncoder(nn.Module):
         for i, blk in enumerate(self._blocks):
             if i in self._taps:
                 feats.append(y)
-            if y.is_cuda and not blk.fused:
+            if y.is_cuda:
                 y = y.contiguous(memory_format=torch.channels_last)
             y = blk(y)
         feats.append(y)

@@ -29,6 +29,18 @@ reduced inside the block in a fixed order; the wrapper sums the tiles, so
 results do not depend on the order blocks run in (no atomics).  The inner
 products run on CUDA cores in fp32; the TPU kernel's H % 8 and W % 128 limits
 and its row-slab choice do not apply.
+
+Two pairs of kernels, chosen by shape and dtype alone (`variant_for`):
+
+- `nhwc` (`csrc/mbconv_nhwc.cu`): the serving path's blocks, bf16 with no
+  expand, mid = Cin and Cout multiples of 8 up to 64.  They read and write
+  NHWC memory, so a channels_last input goes in with no copy and the result
+  is channels_last; haloed tiles of 16 or 8 rows x 32 pixels (the rows by
+  `nhwc_tile_rows`, from the grid and the blocks the card holds) filled by
+  16-byte `cp.async` copies, a depthwise whose threads own 8 channels of
+  one column, and the projection on `mma.sync` tensor cores.
+- `nchw` (`csrc/mbconv.cu`): every other block (expand, fp32, other channel
+  counts), on an NCHW copy of the input.
 """
 
 from __future__ import annotations
@@ -41,10 +53,15 @@ import torch.nn.functional as F
 
 from enhanced_unet_tpu_torch.ops.kernels import build
 
-LAUNCHES = {"mbconv_pass1": 0, "mbconv_pass2": 0}
+LAUNCHES = {"mbconv_pass1": 0, "mbconv_pass2": 0,
+            "mbconv_nhwc_pass1": 0, "mbconv_nhwc_pass2": 0}
 _SOURCE = "mbconv"
 _TILE_W = 32                       # csrc/mbconv.cu TW
 _SMEM_LIMIT = 227 * 1024           # dynamic shared memory a block may use
+_NHWC_SOURCE = "mbconv_nhwc"
+NHWC_TILE_W = 32                   # csrc/mbconv_nhwc.cu TW
+NHWC_MAX_C = 64                    # mid (= Cin) and Cout: multiples of 8 up to this
+_NHWC_SLOTS = {}                   # (pass, C, Cout, TH, device) -> blocks the card holds
 
 
 class MBConvWeights(NamedTuple):
@@ -239,13 +256,141 @@ def mbconv_pass2(x: torch.Tensor, p: MBConvWeights, wpp: torch.Tensor,
     return out
 
 
+def variant_for(x: torch.Tensor, p: MBConvWeights) -> str:
+    """The kernels that take this block: `"nhwc"` for bf16 with no expand,
+    mid = Cin and Cout multiples of 8 up to 64; `"nchw"` otherwise."""
+    mid, cout = p.wdw.shape[0], p.wproj.shape[1]
+    if (x.dtype == torch.bfloat16 and p.wexp is None and x.shape[1] == mid
+            and mid % 8 == 0 and mid <= NHWC_MAX_C
+            and cout % 8 == 0 and cout <= NHWC_MAX_C):
+        return "nhwc"
+    return "nchw"
+
+
+def _nhwc_lib() -> ctypes.CDLL:
+    lib = build.load(_NHWC_SOURCE)
+    if lib.mbconv_nhwc_pass1.restype is not ctypes.c_int:
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.mbconv_nhwc_pass1.argtypes = [vp] * 4 + [i] * 5 + [vp] * 2
+        lib.mbconv_nhwc_pass1.restype = i
+        lib.mbconv_nhwc_pass2.argtypes = [vp] * 6 + [i] * 7 + [vp] * 2
+        lib.mbconv_nhwc_pass2.restype = i
+    return lib
+
+
+def nhwc_tile_rows(n: int, h: int, w: int, slots16: int, slots8: int) -> int:
+    """Output rows per tile of the `nhwc` kernels, 16 or 8, for an
+    [n, h, w] grid on a card that holds `slots16` (`slots8`) blocks of the
+    16-row (8-row) kernel at once.  A block's time goes with its rows, so
+    a grid costs about its waves times its tile rows: 8 rows where that
+    is less, else 16 (the halo read 1.20x, not 1.33x)."""
+    def tiles(th):
+        return n * -(-h // th) * -(-w // NHWC_TILE_W)
+
+    cost16 = -(-tiles(16) // slots16) * 16
+    cost8 = -(-tiles(8) // slots8) * 8
+    return 8 if cost8 < cost16 else 16
+
+
+def _nhwc_slots(which: int, c: int, cout: int, th: int, device: torch.device) -> int:
+    """Blocks of pass `which`'s kernel the card holds at once (resident
+    blocks per SM from the CUDA occupancy query, times the SMs), cached."""
+    key = (which, c, cout, th, device)
+    if key not in _NHWC_SLOTS:
+        lib, blocks = _nhwc_lib(), ctypes.c_int(0)
+        if which == 1:
+            rc = lib.mbconv_nhwc_pass1(None, None, None, None, 0, c, 0, 0, th,
+                                       ctypes.byref(blocks), None)
+        else:
+            rc = lib.mbconv_nhwc_pass2(None, None, None, None, None, None, 0, c, cout,
+                                       0, 0, 0, th, ctypes.byref(blocks), None)
+        build.check(rc, f"mbconv_nhwc pass {which} occupancy")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _NHWC_SLOTS[key] = max(1, blocks.value) * sms
+    return _NHWC_SLOTS[key]
+
+
+def _tile_rows(which: int, xh: torch.Tensor, cout: int) -> int:
+    n, h, w, c = xh.shape
+    return nhwc_tile_rows(n, h, w, _nhwc_slots(which, c, cout, 16, xh.device),
+                          _nhwc_slots(which, c, cout, 8, xh.device))
+
+
+def _nhwc_prepare(x: torch.Tensor, p: MBConvWeights) -> torch.Tensor:
+    """Checks for the `nhwc` kernels; x's NHWC view [N, H, W, C] (no copy
+    for a channels_last x, one copy otherwise)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"the nhwc MBConv kernels take bf16, got {x.dtype}")
+    if x.ndim != 4:
+        raise ValueError(f"expected NCHW input, got shape {tuple(x.shape)}")
+    if variant_for(x, p) != "nhwc":
+        raise ValueError(f"the nhwc MBConv kernels do not take cin={x.shape[1]} "
+                         f"mid={p.wdw.shape[0]} cout={p.wproj.shape[1]} "
+                         f"expand={p.wexp is not None}")
+    if p.wdw.shape != (x.shape[1], 3, 3):
+        raise ValueError("MBConv weights do not match the input channels")
+    xh = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+    if not xh.is_contiguous() or xh.data_ptr() % 16:
+        raise ValueError("the nhwc MBConv kernels need a 16-byte aligned channels_last input")
+    return xh
+
+
+def mbconv_nhwc_pass1(x: torch.Tensor, p: MBConvWeights) -> torch.Tensor:
+    """Pass 1 of the `nhwc` kernels: per-image channel sums [N, mid] (fp32)
+    of NCHW x (channels_last memory read in place).  One partial sum per
+    (image, channel, tile), summed here in a fixed order."""
+    xh = _nhwc_prepare(x, p)
+    n, h, w, c = xh.shape
+    th = _tile_rows(1, xh, c)
+    partial = torch.empty((n, c, -(-h // th) * -(-w // NHWC_TILE_W)), dtype=torch.float32,
+                          device=x.device)
+    rc = _nhwc_lib().mbconv_nhwc_pass1(
+        build.ptr(xh), build.ptr(p.wdw.to(x.device, x.dtype).contiguous()),
+        build.ptr(p.bdw.to(x.device, torch.float32).contiguous()), build.ptr(partial),
+        n, c, h, w, th, None, build.stream_ptr(x.device))
+    build.check(rc, "mbconv_nhwc pass 1 launch")
+    LAUNCHES["mbconv_nhwc_pass1"] += 1
+    return partial.sum(dim=2)
+
+
+def mbconv_nhwc_pass2(x: torch.Tensor, p: MBConvWeights, wpp: torch.Tensor,
+                      residual: bool) -> torch.Tensor:
+    """Pass 2 of the `nhwc` kernels: [N, Cout, H, W] bf16, channels_last."""
+    xh = _nhwc_prepare(x, p)
+    n, h, w, c = xh.shape
+    cout = p.wproj.shape[1]
+    if residual and c != cout:
+        raise ValueError("residual needs Cin == Cout")
+    if wpp.shape != (n, c, cout):
+        raise ValueError(f"gated weights must be [N, mid, Cout], got {tuple(wpp.shape)}")
+    wpp = wpp.to(x.device, x.dtype).contiguous()
+    out = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
+    rc = _nhwc_lib().mbconv_nhwc_pass2(
+        build.ptr(xh), build.ptr(p.wdw.to(x.device, x.dtype).contiguous()),
+        build.ptr(p.bdw.to(x.device, torch.float32).contiguous()), build.ptr(wpp),
+        build.ptr(p.bproj.to(x.device, torch.float32).contiguous()), build.ptr(out),
+        n, c, cout, h, w, int(residual), _tile_rows(2, xh, cout), None,
+        build.stream_ptr(x.device))
+    build.check(rc, "mbconv_nhwc pass 2 launch")
+    LAUNCHES["mbconv_nhwc_pass2"] += 1
+    return out.permute(0, 3, 1, 2)
+
+
 def mbconv_infer_nchw(x: torch.Tensor, p: MBConvWeights, *,
                       residual: bool) -> torch.Tensor:
-    """Fused MBConv inference on NCHW input [N, Cin, H, W] (bf16 or fp32).
-    CPU tensor: the plain version.  CUDA tensor: the two kernels with the SE
-    gate between them, or an error for what they do not take."""
+    """Fused MBConv inference on NCHW input [N, Cin, H, W] (bf16 or fp32,
+    any memory format).  CPU tensor: the plain version.  CUDA tensor: the
+    two kernels of `variant_for(x, p)` with the SE gate between them, or an
+    error for what they do not take.  The `nhwc` kernels return a
+    channels_last result, the `nchw` kernels a contiguous one."""
     if x.device.type == "cpu":
         return mbconv_infer_nchw_plain(x, p, residual=residual)
-    wpp = se_gated_projection(mbconv_pass1(x, p), p, x.shape[2] * x.shape[3],
-                              x.dtype)
+    hw = x.shape[2] * x.shape[3]
+    if variant_for(x, p) == "nhwc":
+        x = x.contiguous(memory_format=torch.channels_last)
+        wpp = se_gated_projection(mbconv_nhwc_pass1(x, p), p, hw, x.dtype)
+        return mbconv_nhwc_pass2(x, p, wpp, residual)
+    wpp = se_gated_projection(mbconv_pass1(x, p), p, hw, x.dtype)
     return mbconv_pass2(x, p, wpp, residual)

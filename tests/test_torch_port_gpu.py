@@ -102,14 +102,96 @@ def test_mbconv_kernel_matches_plain(cuda, dtype, cin, ratio, cout, residual):
     x = torch.randn(3, cin, 45, 70, generator=g, device=cuda).to(dtype)
     with torch.no_grad():
         p = block.fold()
+        # bf16 without expand: the nhwc kernels; fp32 or expand: the nchw ones
+        variant = mbconv.variant_for(x, p)
+        assert variant == ("nhwc" if dtype == torch.bfloat16 and ratio == 1 else "nchw")
         before = dict(mbconv.LAUNCHES)
         got = mbconv.mbconv_infer_nchw(x, p, residual=residual)
         torch.cuda.synchronize()
         want = mbconv.mbconv_infer_nchw_plain(x, p, residual=residual)
-    assert mbconv.LAUNCHES["mbconv_pass1"] == before["mbconv_pass1"] + 1
-    assert mbconv.LAUNCHES["mbconv_pass2"] == before["mbconv_pass2"] + 1
+    prefix = "mbconv_nhwc_" if variant == "nhwc" else "mbconv_"
+    moved = {k: v - before[k] for k, v in mbconv.LAUNCHES.items() if v != before[k]}
+    assert moved == {f"{prefix}pass1": 1, f"{prefix}pass2": 1}
     assert got.dtype == dtype and got.shape == (3, cout, 45, 70)
     assert _rel(got, want) <= _tol(dtype)
+
+
+# (n, C = mid, Cout, h, w, residual): every C the nhwc kernels take at the
+# serving path's (24, 48) and at the limits (8, 64), Cout 8 and 24, 256^2,
+# a ragged 37 x 45 and one 8 x 8 tile short of both tile sides
+_NHWC_CASES = [
+    (6, 48, 24, 256, 256, False), (6, 24, 24, 256, 256, True),
+    (1, 48, 24, 37, 45, False), (1, 24, 24, 37, 45, True),
+    (1, 8, 8, 8, 8, True), (6, 8, 24, 37, 45, False),
+    (1, 64, 8, 8, 8, False), (6, 64, 24, 37, 45, False),
+    (1, 24, 8, 256, 256, False), (6, 8, 8, 256, 256, True),
+    (1, 64, 24, 8, 8, False), (1, 48, 8, 37, 45, False),
+]
+
+
+@pytest.mark.parametrize("n,c,cout,h,w,residual", _NHWC_CASES)
+def test_mbconv_nhwc_kernels_match_plain(cuda, monkeypatch, n, c, cout, h, w, residual):
+    from enhanced_unet_tpu_torch.models import init_random_weights_
+    from enhanced_unet_tpu_torch.models.encoders import MBConvBlock
+    from enhanced_unet_tpu_torch.ops.kernels import mbconv
+
+    block = MBConvBlock(c, cout, 1, 1, 3, fused=True, dtype=torch.bfloat16)
+    init_random_weights_(block, 2).eval().to(cuda)
+    assert block.residual == residual
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn(n, h, w, c, generator=g, device=cuda).bfloat16().permute(0, 3, 1, 2)
+    with torch.no_grad():
+        p = block.fold()
+        assert mbconv.variant_for(x, p) == "nhwc"
+        before = dict(mbconv.LAUNCHES)
+        sums = mbconv.mbconv_nhwc_pass1(x, p)
+        got = mbconv.mbconv_infer_nchw(x, p, residual=residual)
+        torch.cuda.synchronize()
+        moved = {k: v - before[k] for k, v in mbconv.LAUNCHES.items() if v != before[k]}
+        want_sums = mbconv.mbconv_pass1_plain(x, p)
+        want = mbconv.mbconv_infer_nchw_plain(x, p, residual=residual)
+    assert moved == {"mbconv_nhwc_pass1": 2, "mbconv_nhwc_pass2": 1}   # the nchw ones: none
+    assert (sums - want_sums).abs().max() <= 1e-3 * want_sums.abs().max()
+    assert got.dtype == torch.bfloat16 and got.shape == (n, cout, h, w)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert _rel(got, want) <= 2e-2
+    with torch.no_grad():                 # a plain-contiguous input: same values
+        assert torch.equal(mbconv.mbconv_infer_nchw(x.contiguous(), p, residual=residual),
+                           got)
+        wpp = mbconv.se_gated_projection(want_sums, p, h * w, x.dtype)
+        want2 = mbconv.mbconv_pass2_plain(x, p, wpp, residual)
+        for rows in (8, 16):              # both tile heights, whichever the rule picks
+            monkeypatch.setattr(mbconv, "nhwc_tile_rows", lambda *a, r=rows: r)
+            sums = mbconv.mbconv_nhwc_pass1(x, p)
+            assert (sums - want_sums).abs().max() <= 1e-3 * want_sums.abs().max()
+            assert _rel(mbconv.mbconv_nhwc_pass2(x, p, wpp, residual), want2) <= 2e-2
+
+
+def test_mbconv_nhwc_entry_points_reject_what_they_do_not_take(cuda):
+    from enhanced_unet_tpu_torch.models import init_random_weights_
+    from enhanced_unet_tpu_torch.models.encoders import MBConvBlock
+    from enhanced_unet_tpu_torch.ops.kernels import mbconv
+
+    def weights(c):
+        blk = MBConvBlock(c, c, 1, 1, 3, fused=True, dtype=torch.bfloat16)
+        return init_random_weights_(blk, 3).eval().to(cuda).fold()
+
+    p24, p12 = weights(24), weights(12)
+    x = torch.zeros(1, 24, 8, 8, device=cuda, dtype=torch.bfloat16)
+    wpp = torch.zeros(1, 24, 24, device=cuda, dtype=torch.bfloat16)
+    before = dict(mbconv.LAUNCHES)
+    with pytest.raises(TypeError):
+        mbconv.mbconv_nhwc_pass1(x.float(), p24)
+    with pytest.raises(TypeError):
+        mbconv.mbconv_nhwc_pass2(x.float(), p24, wpp, True)
+    with pytest.raises(ValueError, match="do not take"):
+        mbconv.mbconv_nhwc_pass1(torch.zeros(1, 12, 8, 8, device=cuda,
+                                             dtype=torch.bfloat16), p12)
+    with pytest.raises(ValueError, match="device"):
+        mbconv.mbconv_nhwc_pass1(x.cpu(), p24)
+    with pytest.raises(ValueError, match="device"):
+        mbconv.mbconv_nhwc_pass2(x.cpu(), p24, wpp, True)
+    assert mbconv.LAUNCHES == before
 
 
 def test_kernels_reject_what_they_do_not_take(cuda):
