@@ -16,7 +16,8 @@ Phases (any failure exits non-zero):
     the two stage-0 serving shapes on channels_last inputs through its
     `nhwc` kernels, each pass beside the `nchw` kernels on an NCHW copy of
     the same values and the library's channels_last block (several
-    calls), and an expand-6 block on the `nchw` kernels;
+    calls), and an expand-6 block on the `nchw` kernels beside the same
+    library block;
  3b. the kernel benches (`enhanced_unet_tpu_torch.benchmarks`): every launch
     count set to 0, then the `main()` of `dw_variants`, `mbconv_instr` and
     `mbconv_proto` at their full shapes, which hold each kernel against its
@@ -46,7 +47,28 @@ Phases (any failure exits non-zero):
     request beside the bounds' sum and the profiled K1 group;
  5. cross-check: one 256x256 image, one view, bf16 on the card against the
     same weights in fp32 on the CPU (plain PyTorch path);
- 6. a `{"kernels": [...]}` line, the card line, and the final JSON line.
+ 6. the training step (`train.trainer`):
+    6a. the flagship at full width (bf16 compute, fp32 parameters,
+        `fusion_stride=1`, the preset's dropout and stochastic depth) in
+        train mode takes 1 warm and 5 timed steps of 2 seeded 512^2 blob
+        micrographs padded to 640^2 (the JAX trainer's batch): wall and
+        device ms, peak memory and loss of each step, one more step under
+        the profiler; every loss finite, after the first step every called
+        parameter with a finite gradient, not all zero but where stochastic
+        depth dropped its block for both samples or a dead scSE ReLU zeroes
+        it, parameters and running statistics changed, and no K1 or K2
+        launch (training takes the stock path);
+    6b. `make_eval_step` on the trained model: K1 and K2 launch, each
+        confusion matrix sums to 640^2, and an eval-mode forward with grad
+        enabled raises;
+    6c. one step of an efficientnet-tiny flagship (64^2, batch 2, every
+        rate 0, the same weights) on the card against the CPU, in fp32
+        (loss within rtol 1e-4, running statistics within 1e-4, the
+        gradient tree within relative L2 1e-3, or 3x the CPU's own
+        fp32-to-fp64 distance where that is larger: train-mode BatchNorm
+        at batch 2 makes fp32 gradients noise-limited) and in fp64
+        (gradient tree within 1e-4);
+ 7. a `{"kernels": [...]}` line, the card line, and the final JSON line.
 
 It needs no network and builds into `build/kernels/`.
 """
@@ -54,6 +76,7 @@ It needs no network and builds into `build/kernels/`.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -75,6 +98,13 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"bf16": 989e12, "fp32": 67e12}   # dense tensor-core bf16; fp32 CUDA cores
 K2_ITERS = 20                      # calls per K2 timing
 K1_ITERS = 20                      # calls per K1 timing
+TRAIN_STEPS = 5                    # timed full-width train steps, after 1 warm step
+TRAIN_SIZE, TRAIN_PAD = 512, 640   # micrographs, padded to the trainer's max_size
+STEPS_PER_EPOCH = 10               # the LR table's epoch length
+TINY = ("efficientnet-tiny", "efficientnet-tiny")
+# the UNet++ head block's attention1 exists (reference state dict) but is
+# never called
+UNCALLED = "unetpp.decoder.blocks.x_0_4.attention1."
 
 
 def bound(bytes_moved: float, ops: float, kind: str):
@@ -123,16 +153,48 @@ def serving_model(**kwargs):
     return model
 
 
-def profile_request(evaluator, imgs, wall_ms: float) -> dict:
-    """Device time of one request by kernel group and by kernel
-    (torch.profiler), and the device's idle share of `wall_ms`, the
-    request's wall time measured without the profiler.  Returns the
+def blob_batch(n: int, size: int, pad_to: int, seed: int):
+    """Seeded training micrographs with their masks: live (1) and dead (2)
+    disks on a textured background, `size`^2, zero-padded to `pad_to`^2
+    with `valid` true on the image.  Returns float32 images [n, pad_to,
+    pad_to, 3] in [0, 1], int64 masks and a bool valid mask."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    images = np.zeros((n, pad_to, pad_to, 3), np.float32)
+    masks = np.zeros((n, pad_to, pad_to), np.int64)
+    valid = np.zeros((n, pad_to, pad_to), bool)
+    yy, xx = np.mgrid[:size, :size]
+    for i in range(n):
+        img = 0.65 + 0.05 * np.sin(yy / 9.0) + rng.normal(0, 0.02, (size, size))
+        mask = np.zeros((size, size), np.int64)
+        for _ in range(max(5, size * size // 6000)):
+            cy, cx = rng.integers(8, size - 8, 2)
+            r, cls = rng.integers(4, 9) * max(1, size // 128), int(rng.integers(1, 3))
+            disk = (yy - cy) ** 2 + (xx - cx) ** 2 <= r * r
+            img[disk] = 0.5 if cls == 1 else 0.35
+            mask[disk] = cls
+        images[i, :size, :size] = np.clip(img, 0, 1)[..., None]
+        masks[i, :size, :size] = mask
+        valid[i, :size, :size] = True
+    return images, masks, valid
+
+
+TRAIN_GROUPS = (("batch norm", ("batch_norm", "bn_fw", "bn_bw")),
+                ("optimizer (foreach)", ("multi_tensor_apply", "foreach")))
+
+
+def profile_run(run, wall_ms: float, what: str, extra_groups=()) -> dict:
+    """Device time of `run()` by kernel group and by kernel
+    (torch.profiler), and the device's idle share of `wall_ms`, its wall
+    time measured without the profiler.  `extra_groups` ((label, name
+    fragments), ...) are matched before the default groups.  Returns the
     milliseconds by group (empty when nothing was recorded)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        evaluator.predict_semantic_masks(imgs)
+        run()
         torch.cuda.synchronize()
     groups, kernels, group_launches = {}, {}, {}
     total = 0.0
@@ -142,7 +204,10 @@ def profile_request(evaluator, imgs, wall_ms: float) -> dict:
         if us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         name = ev.key
-        group = ("conv3x3_bn_act (K2)" if "conv3x3_bn_act" in name else
+        extra = [label for label, parts in extra_groups
+                 if any(t in name.lower() for t in parts)]
+        group = (extra[0] if extra else
+                 "conv3x3_bn_act (K2)" if "conv3x3_bn_act" in name else
                  "mbconv (K1)" if "mbconv" in name else
                  "cuDNN/cuBLAS conv and matmul" if any(
                      t in name.lower() for t in ("conv", "gemm", "sm90", "xmma", "cudnn", "cutlass"))
@@ -157,11 +222,102 @@ def profile_request(evaluator, imgs, wall_ms: float) -> dict:
         return {}
     parts = ", ".join(f"{k} {v:.1f} ms ({100 * v / total:.0f}%, {group_launches[k]} launches)"
                       for k, v in sorted(groups.items(), key=lambda kv: -kv[1]))
-    print(f"profile of one request: device time {total:.1f} ms of {wall_ms:.1f} ms "
+    print(f"profile of {what}: device time {total:.1f} ms of {wall_ms:.1f} ms "
           f"wall (device idle share {1 - total / wall_ms:.2f}): {parts}")
     for name, (ms, count) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]:
         print(f"  {ms:8.3f} ms {count:5d} launches  {name[:110]}")
+    host = sorted(((ev.self_cpu_time_total / 1e3, ev.count, ev.key) for ev in prof.key_averages()
+                   if ev.self_cpu_time_total > 0), reverse=True)
+    print(f"host time by op (self, under the profiler): total "
+          f"{sum(h[0] for h in host):.1f} ms; top: " + "; ".join(
+              f"{key[:48]} {ms:.1f} ms x{count}" for ms, count, key in host[:10]))
     return groups
+
+
+def record_dropped_blocks(model):
+    """Record, for the next forward, the MBConv blocks whose residual
+    branch stochastic depth dropped for every sample.  Returns (the set of
+    their names, filled as the forward runs; `undo()` to stop)."""
+    from enhanced_unet_tpu_torch.models import encoders
+
+    dropped, current = set(), [None]
+    hooks = [m.register_forward_pre_hook(lambda mod, args, name=n: current.__setitem__(0, name))
+             for n, m in model.named_modules() if isinstance(m, encoders.MBConvBlock)]
+    drop_path = encoders.drop_path
+
+    def recording_drop_path(y, rate, generator):
+        out = drop_path(y, rate, generator)
+        if not out.flatten(1).abs().amax(1).gt(0).any().item():
+            dropped.add(current[0])
+        return out
+
+    def undo():
+        encoders.drop_path = drop_path
+        for h in hooks:
+            h.remove()
+
+    encoders.drop_path = recording_drop_path
+    return dropped, undo
+
+
+def check_gradients(model, dropped) -> None:
+    """After a train step: every called parameter has a finite gradient,
+    not all zero unless stochastic depth dropped its MBConv block's branch
+    for every sample (then exactly zero) or a dead ReLU in an scSE channel
+    gate zeroed it (its reduce conv and its expand weight; the expand bias
+    still gets one), and the never-called head attention has none."""
+    import torch
+
+    named = [(n, p) for n, p in model.named_parameters() if not n.startswith(UNCALLED)]
+    missing = [n for n, p in named if p.grad is None]
+    check(not missing, f"parameters without a gradient: {missing[:5]}")
+    check(all(p.grad is None for n, p in model.named_parameters() if n.startswith(UNCALLED)),
+          "the never-called head attention has no gradient")
+    finite = torch.stack([torch.isfinite(p.grad).all() for _, p in named]).tolist()
+    check(all(finite), "finite gradients")
+    amax = torch.stack([p.grad.abs().amax().float() for _, p in named]).tolist()
+    zero = {n for (n, _), a in zip(named, amax) if a == 0}
+    in_dropped = {n for n, _ in named if any(n.startswith(b + ".") for b in dropped)}
+    check(in_dropped <= zero, f"gradients in fully dropped blocks: {sorted(in_dropped - zero)}")
+    gated = {n for n in zero - in_dropped if ".cSE.1." in n or n.endswith(".cSE.3.weight")}
+    check(zero == gated | in_dropped,
+          f"all-zero gradients outside dropped blocks and scSE gates: "
+          f"{sorted(zero - gated - in_dropped)}")
+    check(all(n.rsplit(".cSE.", 1)[0] + ".cSE.3.bias" not in zero for n in gated),
+          "a gate whose ReLU is dead still passes a gradient to its expand bias")
+    print(f"gradients after the first step: {len(named)} called parameters, all finite, "
+          f"{len(named) - len(zero)} not all zero; {len(in_dropped)} in the {len(dropped)} "
+          f"blocks stochastic depth dropped for both samples {sorted(dropped)}; "
+          f"{len(gated)} zeroed by dead scSE ReLUs {sorted(gated)}")
+
+
+def tiny_train_step(cfg, device, dtype, batch) -> dict:
+    """One train step of an efficientnet-tiny flagship (seed 5, every rate
+    0) in `dtype` on `device`: its loss, its (clipped) gradients and its
+    running statistics after the step, in fp64 on the CPU."""
+    import torch
+
+    from enhanced_unet_tpu_torch.models import get_model
+    from enhanced_unet_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    model = get_model("enhanced_unet", dtype=dtype, device=device, seed=5,
+                      encoder_names=TINY, fusion_dropout=(0.0, 0.0),
+                      drop_connect_rate=0.0, aspp_dropout=0.0).to(dtype)
+    state = create_train_state(model, cfg, STEPS_PER_EPOCH, device=device)
+    images, masks, valid = (torch.from_numpy(a).to(device) for a in batch)
+    gen = torch.Generator(device=device).manual_seed(0)
+    _, out = make_train_step(cfg)(state, images, masks, valid, gen)
+    return {"loss": out["loss"].item(),
+            "grads": {n: p.grad.double().cpu() for n, p in model.named_parameters()
+                      if p.grad is not None},
+            "stats": {n: b.double().cpu() for n, b in model.named_buffers()
+                      if "running" in n}}
+
+
+def tree_rel_l2(ours: dict, ref: dict) -> float:
+    num = sum(((ours[k] - v) ** 2).sum().item() for k, v in ref.items())
+    den = sum((v ** 2).sum().item() for v in ref.values())
+    return (num / max(den, 1e-300)) ** 0.5
 
 
 def main(argv=None) -> int:
@@ -364,11 +520,11 @@ def main(argv=None) -> int:
         b2, by2 = bound(hw * (cin + cout) * 2 + w_bytes + n * mid * cout * 2 + cout * 4,
                         hw * (ops + 2 * mid * cout + 2 * cout), "bf16")
         nhwc = variant == "nhwc"
-        library = None
-        if nhwc:
-            xh, lp = x.permute(0, 2, 3, 1), p._asdict()
-            library = device_ms(lambda: proto.mbconv_nhwc_library(
-                xh, lp, expand=False, residual=res), iters)
+        # the library's channels_last block on the same values (a view of
+        # x for `nhwc`, a channels_last copy for `nchw`)
+        xh, lp = x.permute(0, 2, 3, 1).contiguous(), p._asdict()
+        library = device_ms(lambda: proto.mbconv_nhwc_library(
+            xh, lp, expand=expand, residual=res), iters)
 
         def at_rows(th, kernel):
             # the kernel's time with `nhwc_tile_rows` answering `th`
@@ -485,13 +641,15 @@ def main(argv=None) -> int:
               f"{row['rel_err']:.3e} (tol {tol:g}); kernel {row['ms']:.4f} ms (unheld "
               f"{row['wall_ms']:.4f}), plain {row['plain_ms']:.4f} ms, library "
               f"{'none' if row['library_ms'] is None else format(row['library_ms'], '.4f')}"
-              f", bound {b:.4f} ms ({kind})")
+              + (f" (yardstick: grouped 3x1 conv + bias + SiLU {row['yardstick_ms']:.4f})"
+                 if "yardstick_ms" in row else "") + f", bound {b:.4f} ms ({kind})")
         check(row["rel_err"] <= tol, f"{key} {what} rel err {row['rel_err']}")
         # the MBConv block's library yardstick is several calls: no library_ms
         results.setdefault(key, dict(
             shape=what, max_abs_err=row["max_abs_err"], ms=row["ms"],
             wall_ms=row["wall_ms"], plain_ms=row["plain_ms"], bound_ms=b, bound_by=kind,
-            library_ms=None if key == "mbconv_proto" else row["library_ms"]))
+            library_ms=None if key == "mbconv_proto" else row["library_ms"],
+            **{k: row[k] for k in ("yardstick_ms",) if k in row}))
     print(f"copy bandwidth {shape}: kernel {rows['copy']['gb_per_s']:.1f} GB/s, "
           f"Tensor.copy_ {rows['copy']['library_gb_per_s']:.1f} GB/s measured; "
           f"data sheet {HBM_BYTES_PER_S / 1e9:.0f} GB/s (the bounds' divisor)")
@@ -584,7 +742,8 @@ def main(argv=None) -> int:
     check(folds[0] > 0 and not any(folds[1:]), f"K1 weight folds per request {folds}")
     check(k1_inputs == {(True, True)},
           "every K1 input channels_last and every folded weight in place on the card")
-    groups = profile_request(evaluator, requests[-1], 1e3 * min(times[1:]))
+    groups = profile_run(lambda: evaluator.predict_semantic_masks(requests[-1]),
+                         1e3 * min(times[1:]), "one request")
 
     # ---- 4b. K2 at every shape the serving path gave it ------------------
     t0 = time.perf_counter()
@@ -655,7 +814,131 @@ def main(argv=None) -> int:
     check(torch.isfinite(got).all().item(), "finite logits")
     check(err <= 5e-2 * scale, "bf16 card path within 5e-2 of max |logit|")
 
-    # ---- 6. report -------------------------------------------------------
+    del ref_model
+
+    # ---- 6. the training step --------------------------------------------
+    from enhanced_unet_tpu_torch.config import get_preset
+    from enhanced_unet_tpu_torch.metrics.semantic import metrics_from_confusion
+    from enhanced_unet_tpu_torch.models import get_model
+    from enhanced_unet_tpu_torch.train.trainer import (
+        create_train_state,
+        make_eval_step,
+        make_train_step,
+    )
+
+    # 6a. full width, train mode, the preset's dropout and stochastic depth
+    torch.cuda.empty_cache()
+    cfg = get_preset("enhanced_unet")
+    t0 = time.perf_counter()
+    model = get_model("enhanced_unet", seed=0)           # device None: the card
+    state = create_train_state(model, cfg, STEPS_PER_EPOCH)
+    train_step = make_train_step(cfg)
+    imgs, masks, valid = (torch.from_numpy(a).to(dev)
+                          for a in blob_batch(2, TRAIN_SIZE, TRAIN_PAD, 11))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    stats0 = {n: b.clone() for n, b in model.named_buffers() if "running" in n}
+    print(f"train: enhanced_unet b5/b4 bf16, batch 2 x {TRAIN_PAD}^2 ({TRAIN_SIZE}^2 valid), "
+          f"rates {model.fusion_dropout} / {model.drop_connect_rate} / {model.aspp_dropout}, "
+          f"model and state in {time.perf_counter() - t0:.2f} s")
+    reset(counters)
+    torch.cuda.reset_peak_memory_stats()
+    walls, device_times, losses = [], [], []
+    for i in range(1 + TRAIN_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:
+            dropped, undo = record_dropped_blocks(model)
+        start.record()
+        state, out = train_step(state, imgs, masks, valid, gen)
+        end.record()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        device_times.append(start.elapsed_time(end))
+        losses.append(out["loss"].item())
+        if i == 0:
+            undo()
+            check_gradients(model, dropped)
+    peak = torch.cuda.max_memory_allocated()
+    train_launches = {**conv_fused.LAUNCHES, **mbconv.LAUNCHES}
+    print(f"train steps (1 warm + {TRAIN_STEPS}): wall ms {[round(t, 1) for t in walls]}, "
+          f"device ms (CUDA events) {[round(t, 1) for t in device_times]}, peak memory "
+          f"{peak} bytes, losses {[round(v, 4) for v in losses]}, K1/K2 launches "
+          f"{json.dumps(train_launches)}")
+    check(all(math.isfinite(v) for v in losses), f"finite losses {losses}")
+    check(not any(train_launches.values()), "training launched no K1 or K2 kernel")
+    moved = torch.stack([(p != params0[n]).any() for n, p in model.named_parameters()
+                         if not n.startswith(UNCALLED)]).all().item()
+    stats_moved = torch.stack([(b != stats0[n]).any() for n, b in model.named_buffers()
+                               if n in stats0]).all().item()
+    check(moved and stats_moved, "every called parameter and every running statistic changed")
+    del params0, stats0
+    stepped = []
+    profile_run(
+        lambda: stepped.append(train_step(state, imgs, masks, valid, gen)),
+        min(walls[1:]), "one train step", TRAIN_GROUPS)
+    state = stepped[0][0]
+
+    # 6b. the eval step on the trained model: the fused kernels' path
+    eval_step = make_eval_step(cfg)
+    reset(counters)
+    t0 = time.perf_counter()
+    logits, cms = eval_step(state, imgs, masks, valid)
+    torch.cuda.synchronize()
+    eval_ms = 1e3 * (time.perf_counter() - t0)
+    eval_launches = {**conv_fused.LAUNCHES, **mbconv.LAUNCHES}
+    totals = cms.sum((1, 2)).tolist()
+    scores = metrics_from_confusion(cms.sum(0).cpu().numpy())
+    print(f"eval step: {eval_ms:.1f} ms (first call: packs and folds), launches "
+          f"{json.dumps(eval_launches)}, confusion-matrix totals {totals}, "
+          f"sem_mean_iou {scores['sem_mean_iou']:.4f}")
+    check(torch.isfinite(logits).all().item(), "finite eval logits")
+    check(tuple(cms.shape) == (2, 3, 3) and totals == [TRAIN_PAD * TRAIN_PAD] * 2,
+          f"each confusion matrix sums to {TRAIN_PAD}^2: {totals}")
+    for name in ("mbconv_nhwc_pass1", "mbconv_nhwc_pass2"):
+        check(eval_launches[name] > 0, f"the eval step launched {name}")
+    check(eval_launches["conv3x3_bn_act_wgmma"] + eval_launches["conv3x3_bn_act_smallc"] > 0,
+          "the eval step launched K2")
+    try:
+        state.model(imgs)            # eval mode, grad enabled
+    except RuntimeError as err:
+        refused = str(err)
+    else:
+        refused = None
+    print(f"eval-mode forward with grad enabled: {refused}")
+    check(refused is not None and "no backward" in refused,
+          "an eval-mode forward with grad enabled raises on the card")
+    check({**conv_fused.LAUNCHES, **mbconv.LAUNCHES} == eval_launches,
+          "the refused forward launched nothing")
+    del model, state, logits, imgs, masks, valid, stepped
+    torch.cuda.empty_cache()
+
+    # 6c. one tiny step on the card against the CPU, fp32 and fp64
+    t0 = time.perf_counter()
+    batch = blob_batch(2, 56, 64, 5)
+    steps = {(where, dt): tiny_train_step(cfg, where, dt, batch)
+             for where in ("cpu", dev) for dt in (torch.float32, torch.float64)}
+    cpu32, cpu64 = steps["cpu", torch.float32], steps["cpu", torch.float64]
+    card32, card64 = steps[dev, torch.float32], steps[dev, torch.float64]
+    noise = tree_rel_l2(cpu32["grads"], cpu64["grads"])
+    grad32 = tree_rel_l2(card32["grads"], cpu32["grads"])
+    grad64 = tree_rel_l2(card64["grads"], cpu64["grads"])
+    loss_rel = abs(card32["loss"] - cpu32["loss"]) / abs(cpu32["loss"])
+    stats_err = max((card32["stats"][n] - b).abs().max().item() / b.abs().max().item()
+                    for n, b in cpu32["stats"].items())
+    grad_tol = max(1e-3, 3 * noise)
+    print(f"tiny step, card vs cpu: fp32 loss rel {loss_rel:.3e} (tol 1e-4), running "
+          f"stats {stats_err:.3e} of max (tol 1e-4), gradient tree rel L2 {grad32:.3e} "
+          f"(tol {grad_tol:.3e}: 1e-3, or 3 x the cpu's own fp32-to-fp64 distance "
+          f"{noise:.3e} if larger); fp64 gradient tree rel L2 {grad64:.3e} (tol 1e-4); "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(loss_rel <= 1e-4, "tiny fp32 loss within rtol 1e-4 of the cpu")
+    check(stats_err <= 1e-4, "tiny fp32 running statistics within 1e-4 of the cpu")
+    check(grad32 <= grad_tol, "tiny fp32 gradients within 1e-3 (or the fp32 noise) of the cpu")
+    check(grad64 <= 1e-4, "tiny fp64 gradients within 1e-4 of the cpu")
+
+    # ---- 7. report -------------------------------------------------------
     meta = {
         "conv3x3_bn_act_wgmma": ("enhanced_unet_tpu_torch/csrc/conv3x3_bn_act.cu",
                                  "enhanced_unet_tpu/ops/pallas/conv_fused.py:109"),
@@ -695,7 +978,8 @@ def main(argv=None) -> int:
                         "wall_ms": r["wall_ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
-                        **{k: r[k] for k in ("library_conv_ms", "library_block_ms", "nchw_ms")
+                        **{k: r[k] for k in ("library_conv_ms", "library_block_ms", "nchw_ms",
+                                             "yardstick_ms")
                            if k in r},
                         "shape": r["shape"]})
     print(json.dumps({"kernels": kernels}))

@@ -12,7 +12,11 @@ prints one JSON row each:
                        floor, with `Tensor.copy_` (a device-to-device
                        memcpy) as its library call and the achieved GB/s
                        (bytes read + written) of both
-  dw_only            : the row-only depthwise probe (`dw_rows_silu`)
+  dw_only            : the row-only depthwise probe (`dw_rows_silu`), with
+                       `yardstick_ms`: cuDNN's grouped 3x1 conv (the probe's
+                       three row taps) + bias + SiLU on the same input, the
+                       same work but not the same function (the probe's
+                       slab edges read other rows), so not checked
   pass1, pass2, full : the MBConv kernels on `mbconv_proto`'s weights;
                        pass 2 projects with the ungated weights, as the
                        TPU bench does; full is `mbconv_proto`
@@ -27,6 +31,7 @@ import json
 from typing import List, Optional, Union
 
 import torch
+import torch.nn.functional as F
 
 from enhanced_unet_tpu_torch.benchmarks.mbconv_proto import (
     DT,
@@ -34,7 +39,12 @@ from enhanced_unet_tpu_torch.benchmarks.mbconv_proto import (
     mbconv_proto,
     proto_weights,
 )
-from enhanced_unet_tpu_torch.benchmarks.microtime import device_row, kernel_row, time_op
+from enhanced_unet_tpu_torch.benchmarks.microtime import (
+    device_ms,
+    device_row,
+    kernel_row,
+    time_op,
+)
 from enhanced_unet_tpu_torch.device import resolve_device
 from enhanced_unet_tpu_torch.ops.kernels import copy, depthwise, mbconv
 
@@ -76,6 +86,10 @@ def main(device: Optional[Union[str, torch.device]] = None) -> List[dict]:
         if name == "copy":
             row.update(gb_per_s=moved / row["ms"] / 1e6,
                        library_gb_per_s=moved / row["library_ms"] / 1e6)
+        if name == "dw_only":
+            w31 = p["wdw"].to(DT).sum(2)[:, None, :, None]        # [C, 1, 3, 1]
+            row["yardstick_ms"] = device_ms(lambda: F.silu(F.conv2d(
+                x, w31, p["bdw"].to(DT), padding=(1, 0), groups=C)), 30)
         rows.append(row)
         print(json.dumps(row), flush=True)
     return rows

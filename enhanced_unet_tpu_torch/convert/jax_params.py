@@ -7,16 +7,22 @@ The inverse of `enhanced_unet_tpu/convert/torch_import.py`
 result loads strictly: the keys the JAX tree has no values for (BatchNorm's
 `num_batches_tracked` and the never-called `x_0_4.attention1` of the UNet++
 head block) are filled with zeros.
+
+A JAX `TrainState` taken mid-training carries over too: the first and
+second moments of its optax `chain(clip_by_global_norm, adamw)` state have
+the parameters' tree and go through the same key map (`resume_from_jax`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+import dataclasses
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
 from enhanced_unet_tpu_torch.models.encoders import expand_ratios
+from enhanced_unet_tpu_torch.train.trainer import AdamWState, TrainState
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -156,3 +162,65 @@ def state_dict_from_jax(params: Mapping, batch_stats: Mapping,
     _conv(sd, "fusion_head.11", params["Conv_2"])
     _conv(sd, "fusion_residual", params["Conv_3"])
     return sd
+
+
+_STATS_KEYS = ("running_mean", "running_var", "num_batches_tracked")
+
+
+def _stats_like(tree: Mapping) -> Dict:
+    """A stand-in `batch_stats` tree for a params-shaped tree, so the weight
+    key map walks it: each BatchNorm's {scale, bias} gives {mean, var}."""
+    if "scale" in tree and "bias" in tree:
+        return {"mean": tree["scale"], "var": tree["scale"]}
+    return {k: _stats_like(v) for k, v in tree.items() if isinstance(v, Mapping)}
+
+
+def _param_tree_to_port(tree: Mapping, variants: Tuple[str, str]) -> StateDict:
+    """A tree shaped like the flax params (a gradient, a moment) -> the same
+    values under the port's parameter names."""
+    sd = state_dict_from_jax(tree, _stats_like(tree), variants)
+    return {k: v for k, v in sd.items() if not k.endswith(_STATS_KEYS)}
+
+
+def _adam_state(opt_state: Any):
+    """The `ScaleByAdamState` (count, mu, nu) inside an optax state."""
+    if all(hasattr(opt_state, a) for a in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            found = _adam_state(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def optimizer_state_from_jax(opt_state: Any,
+                             variants: Tuple[str, str] = ("efficientnet-b5",
+                                                          "efficientnet-b4"),
+                             mu_dtype: torch.dtype = torch.float32,
+                             device="cpu") -> AdamWState:
+    """An optax `chain(clip_by_global_norm, adamw)` state -> the port's
+    `AdamWState` (mu in `mu_dtype`, nu fp32) on `device`."""
+    adam = _adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no Adam state (count, mu, nu) in the optimizer state")
+
+    def moments(tree, dtype):
+        return {k: v.to(device=device, dtype=dtype)
+                for k, v in _param_tree_to_port(tree, variants).items()}
+
+    return AdamWState(count=int(np.asarray(adam.count)),
+                      mu=moments(adam.mu, mu_dtype), nu=moments(adam.nu, torch.float32))
+
+
+def resume_from_jax(state: TrainState, params: Mapping, batch_stats: Mapping,
+                    opt_state: Any, variants: Tuple[str, str] = ("efficientnet-b5",
+                                                                 "efficientnet-b4"),
+                    ) -> TrainState:
+    """The trees of a JAX `TrainState` (params, batch_stats, opt_state)
+    loaded into the port's `state`: weights and running statistics into its
+    model, the moments and the update count into its optimizer state."""
+    state.model.load_state_dict(state_dict_from_jax(params, batch_stats, variants))
+    device = next(state.model.parameters()).device
+    opt = optimizer_state_from_jax(opt_state, variants, state.tx.mu_dtype, device)
+    return dataclasses.replace(state, step=opt.count, opt_state=opt)

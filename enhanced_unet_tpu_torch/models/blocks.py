@@ -7,8 +7,9 @@ NCHW modules whose parameter names follow the reference state dict
 `SeparableConv2d`, `ASPP`), so `enhanced_unet_tpu.convert.torch_import`
 reads a port state dict as it reads a reference checkpoint.  Parameters are
 fp32; each module computes in its `dtype`, cast where flax's `dtype=` casts.
-The port runs inference: BatchNorm uses its running statistics and dropout
-is off.
+In eval mode BatchNorm uses its running statistics and dropout is off; in
+train mode BatchNorm follows flax (see `batch_norm`) and dropout draws from an
+explicit `torch.Generator`.
 """
 
 from __future__ import annotations
@@ -38,9 +39,60 @@ def conv(x: torch.Tensor, layer: nn.Conv2d, dtype: torch.dtype,
 
 
 def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
-    """Inference BatchNorm with the running statistics, in x's dtype."""
-    return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
-                        bn.bias, False, 0.0, bn.eps)
+    """BatchNorm in x's dtype.  Eval mode: the running statistics.  Train
+    mode: flax's `nn.BatchNorm`, not torch's.  The batch statistics are
+    reduced in fp32 (also for a bf16 x), x is normalised with the biased
+    variance, and the running statistics move as `m * running + (1 - m) *
+    batch` with flax's momentum m = 1 - `bn.momentum` and the biased variance
+    (torch would update with the unbiased one)."""
+    if not bn.training:
+        return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                            bn.bias, False, 0.0, bn.eps)
+    # momentum 1 writes the batch mean and unbiased variance into the zeros
+    mean = torch.zeros_like(bn.running_mean)
+    var = torch.zeros_like(bn.running_var)
+    y = F.batch_norm(x, mean, var, bn.weight, bn.bias, True, 1.0, bn.eps)
+    n = x.numel() // x.shape[1]
+    m = 1.0 - bn.momentum
+    with torch.no_grad():
+        bn.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+        bn.running_var.mul_(m).add_(var, alpha=(1.0 - m) * (n - 1) / n)
+    return y
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax's `nn.Dropout` in train mode: each element kept with probability
+    1 - rate (a uniform draw below it) and scaled by 1 / (1 - rate)."""
+    if rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    # the draws in x's memory layout, so the select below runs on matching
+    # strides (a channels_last x against an NCHW mask takes a slow strided path)
+    mask = torch.empty_like(x, dtype=torch.float32).uniform_(
+        generator=need_generator(generator, "dropout")) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def need_generator(generator: Optional[torch.Generator],
+                   what: str) -> torch.Generator:
+    """`generator`, or an error: random draws in train mode come from an
+    explicit `torch.Generator`, never from the global one."""
+    if generator is None:
+        raise ValueError(f"{what} in train mode needs a torch.Generator "
+                         "(pass generator=...)")
+    return generator
+
+
+def refuse_autograd(block: str, params) -> None:
+    """Raise when autograd would record a fused kernel's call (grad mode on
+    and a weight of the block requiring grad).  The kernels and their plain
+    versions compute from weights folded or packed under `no_grad`, so the
+    graph would skip those weights; the kernels have no backward."""
+    if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+        raise RuntimeError(
+            f"{block}: the fused inference kernel has no backward; run eval-mode "
+            "forwards under torch.no_grad()/torch.inference_mode(), or use train mode")
 
 
 def packed_conv3x3(layer: nn.Conv2d, bn: nn.BatchNorm2d, dtype: torch.dtype,
@@ -67,12 +119,15 @@ def packed_conv3x3(layer: nn.Conv2d, bn: nn.BatchNorm2d, dtype: torch.dtype,
 
 def conv_bn_act(x: torch.Tensor, layer: nn.Conv2d, bn: nn.BatchNorm2d,
                 relu: bool, dtype: torch.dtype) -> torch.Tensor:
-    """Conv -> BN -> optional ReLU.  A 3x3, stride-1, undilated, ungrouped
-    conv goes through the fused conv3x3+BN+ReLU kernel with its weights
-    packed once (its plain version on the CPU); any other conv runs as
-    plain PyTorch."""
-    if (layer.kernel_size == (3, 3) and layer.stride == (1, 1)
+    """Conv -> BN -> optional ReLU.  In eval mode a 3x3, stride-1,
+    undilated, ungrouped conv goes through the fused conv3x3+BN+ReLU kernel
+    with its weights packed once (its plain version on the CPU), and raises
+    when autograd would record it; train mode (batch statistics, which a
+    folded BN cannot give) and any other conv run as plain PyTorch."""
+    if (not bn.training and layer.kernel_size == (3, 3) and layer.stride == (1, 1)
             and layer.dilation == (1, 1) and layer.groups == 1):
+        refuse_autograd(f"3x3 ConvBNAct {layer.in_channels}->{layer.out_channels}",
+                        (layer.weight, bn.weight, bn.bias))
         xh = x.to(dtype).permute(0, 2, 3, 1).contiguous()
         y = fused_conv3x3_bn_relu_packed(
             xh, packed_conv3x3(layer, bn, dtype, xh.device), relu=relu)
@@ -199,10 +254,10 @@ class ASPPPooling(nn.Sequential):
 class ASPP(nn.Module):
     """Atrous spatial pyramid pooling as in smp's DeepLabV3+ (separable):
     a 1x1 branch, three separable dilated 3x3 branches and a pooled branch,
-    fused by a 1x1 projection (its dropout is off at inference)."""
+    fused by a 1x1 projection and an element-wise dropout (train mode)."""
 
     def __init__(self, cin: int, features: int = 256, rates=(12, 24, 36),
-                 dtype: torch.dtype = torch.bfloat16):
+                 dropout: float = 0.5, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.convs = nn.ModuleList(
             [ConvBNAct(cin, features, 1, dtype=dtype)]
@@ -210,6 +265,8 @@ class ASPP(nn.Module):
             + [ASPPPooling(cin, features, dtype)])
         self.project = ConvBNAct(len(self.convs) * features, features, 1,
                                  dtype=dtype)
+        self.dropout = dropout
 
-    def forward(self, x):
-        return self.project(torch.cat([m(x) for m in self.convs], dim=1))
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        y = self.project(torch.cat([m(x) for m in self.convs], dim=1))
+        return dropout(y, self.dropout, generator) if self.training else y

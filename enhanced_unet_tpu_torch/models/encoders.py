@@ -7,20 +7,26 @@ smp's EfficientNet encoders.
 The encoder emits smp's feature pyramid [input, s2, s4, s8, s16, s32].
 Stride-2 convs use TF SAME padding (asymmetric: (0, 1) for k3 and (1, 2)
 for k5 on even input).  At output stride 16, stages 5-6 keep stride 1 and
-dilate their depthwise convs by 2, padded symmetrically.  At inference the
-stride-1 3x3 blocks of stage 0 run the fused MBConv kernel.
+dilate their depthwise convs by 2, padded symmetrically.  In eval mode the
+stride-1 3x3 blocks of stage 0 run the fused MBConv kernel; train mode runs
+every block on the stock path, with stochastic depth on the residual blocks.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List
+from typing import List, Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from enhanced_unet_tpu_torch.models.blocks import batch_norm, conv
+from enhanced_unet_tpu_torch.models.blocks import (
+    batch_norm,
+    conv,
+    need_generator,
+    refuse_autograd,
+)
 from enhanced_unet_tpu_torch.ops.kernels.mbconv import (
     MBConvWeights,
     fold_mbconv_weights,
@@ -90,15 +96,29 @@ def _bn(c: int) -> nn.BatchNorm2d:
     return nn.BatchNorm2d(c, eps=_BN_EPS, momentum=_BN_MOMENTUM)
 
 
+def drop_path(y: torch.Tensor, rate: float,
+              generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Stochastic depth of a residual branch, per sample: the sample's
+    branch is kept when `floor(keep + U)` is 1 (U uniform, keep = 1 - rate)
+    and scaled by 1 / keep."""
+    keep = 1.0 - rate
+    u = torch.rand((y.shape[0], 1, 1, 1), device=y.device,
+                   generator=need_generator(generator, "stochastic depth"))
+    return y / keep * torch.floor(keep + u).to(y.dtype)
+
+
 class MBConvBlock(nn.Module):
     """Mobile inverted bottleneck with squeeze-excitation.
 
     `fused=True` (stride 1, kernel 3, undilated) runs the two-pass fused
-    MBConv kernel; otherwise the stock PyTorch path runs."""
+    MBConv kernel in eval mode; otherwise, and always in train mode, the
+    stock PyTorch path runs.  `drop_rate` is the stochastic-depth rate of a
+    residual block in train mode."""
 
     def __init__(self, cin: int, cout: int, expand_ratio: int, stride: int,
                  kernel: int, dilation: int = 1, se_ratio: float = 0.25,
-                 fused: bool = False, dtype: torch.dtype = torch.bfloat16):
+                 fused: bool = False, drop_rate: float = 0.0,
+                 dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         mid = cin * expand_ratio
         if expand_ratio != 1:
@@ -114,10 +134,12 @@ class MBConvBlock(nn.Module):
         self._bn2 = _bn(cout)
         if fused and (stride != 1 or kernel != 3 or dilation != 1):
             raise ValueError("the fused MBConv kernel takes stride-1 3x3 blocks")
+        self.cin, self.cout = cin, cout
         self.expand_ratio, self.stride, self.kernel = expand_ratio, stride, kernel
         self.dilation = dilation
         self.residual = stride == 1 and cin == cout
         self.fused = fused
+        self.drop_rate = drop_rate
         self.dtype = dtype
 
     def fold(self) -> MBConvWeights:
@@ -153,8 +175,10 @@ class MBConvBlock(nn.Module):
         self.__dict__["_folded"] = (key, folded)
         return folded
 
-    def forward(self, x):
-        if self.fused:
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        if self.fused and not self.training:
+            refuse_autograd(f"fused MBConvBlock {self.cin}->{self.cout}",
+                            self.parameters())
             return mbconv_infer_nchw(x.to(self.dtype), self.fold(),
                                      residual=self.residual)
         dt = self.dtype
@@ -173,6 +197,8 @@ class MBConvBlock(nn.Module):
         y = y * torch.sigmoid(s)
         y = batch_norm(conv(y, self._project_conv, dt), self._bn2)
         if self.residual:
+            if self.training and self.drop_rate > 0.0:
+                y = drop_path(y, self.drop_rate, generator)
             y = y + x
         return y
 
@@ -180,10 +206,11 @@ class MBConvBlock(nn.Module):
 class EfficientNetEncoder(nn.Module):
     """EfficientNet feature pyramid [input, s2, s4, s8, s16, s32] on NCHW
     input.  The stride-2 feature is the stem output (smp's stage
-    boundary)."""
+    boundary).  Block i of n has the stochastic-depth rate
+    `drop_connect_rate * i / n` (train mode, residual blocks only)."""
 
     def __init__(self, variant: str = "efficientnet-b5", output_stride: int = 32,
-                 dtype: torch.dtype = torch.bfloat16):
+                 drop_connect_rate: float = 0.2, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         width_mult, depth_mult = _EFFNET_SCALE[variant]
         stem_c = _round_filters(32, width_mult)
@@ -194,6 +221,7 @@ class EfficientNetEncoder(nn.Module):
         blocks = []
         self._taps = []                 # block indices whose INPUT is a feature
         self.out_channels = [3, stem_c]
+        total = sum(_round_repeats(r, depth_mult) for _, _, r, _, _ in _EFFNET_BASE)
         cin = stem_c
         for stage, (e, c, r, s, k) in enumerate(_EFFNET_BASE):
             cout = _round_filters(c, width_mult)
@@ -206,14 +234,16 @@ class EfficientNetEncoder(nn.Module):
                 if stage in dilated_stages:
                     stride, dilation = 1, 2
                 fused = stage == 0 and k == 3 and stride == 1 and dilation == 1
-                blocks.append(MBConvBlock(cin, cout, e, stride, k, dilation,
-                                          fused=fused, dtype=dtype))
+                blocks.append(MBConvBlock(
+                    cin, cout, e, stride, k, dilation, fused=fused,
+                    drop_rate=drop_connect_rate * len(blocks) / total, dtype=dtype))
                 cin = cout
         self.out_channels.append(cin)
         self._blocks = nn.ModuleList(blocks)
         self.dtype = dtype
 
-    def forward(self, x) -> List[torch.Tensor]:
+    def forward(self, x, generator: Optional[torch.Generator] = None
+                ) -> List[torch.Tensor]:
         feats = [x]
         y = conv(tf_same_pad(x, 3, 2), self._conv_stem, self.dtype)
         y = F.silu(batch_norm(y, self._bn0))
@@ -223,6 +253,6 @@ class EfficientNetEncoder(nn.Module):
                 feats.append(y)
             if y.is_cuda:
                 y = y.contiguous(memory_format=torch.channels_last)
-            y = blk(y)
+            y = blk(y, generator)
         feats.append(y)
         return feats

@@ -19,7 +19,7 @@ are accepted and change nothing: they compute the same math.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -35,6 +35,8 @@ from enhanced_unet_tpu_torch.models.blocks import (
     batch_norm,
     conv,
     conv_bn_act,
+    dropout,
+    need_generator,
 )
 from enhanced_unet_tpu_torch.models.encoders import EfficientNetEncoder
 from enhanced_unet_tpu_torch.ops.resize import (
@@ -116,43 +118,44 @@ class UNetPlusPlus(nn.Module):
 
     def __init__(self, num_classes: int = 3, encoder_name: str = "efficientnet-b5",
                  decoder_channels: Sequence[int] = (256, 128, 64, 32, 16),
-                 dtype: torch.dtype = torch.bfloat16):
+                 drop_connect_rate: float = 0.2, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        self.encoder = EfficientNetEncoder(encoder_name, dtype=dtype)
+        self.encoder = EfficientNetEncoder(
+            encoder_name, drop_connect_rate=drop_connect_rate, dtype=dtype)
         self.decoder = UnetPlusPlusDecoder(self.encoder.out_channels,
                                            decoder_channels, dtype)
         self.segmentation_head = nn.Sequential(
             nn.Conv2d(decoder_channels[-1], num_classes, 3, padding=1))
         self.dtype = dtype
 
-    def forward(self, x):
-        y = self.decoder(*self.encoder(x))
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        y = self.decoder(*self.encoder(x, generator))
         return conv(y, self.segmentation_head[0], self.dtype).float()
 
 
 class _ASPPHead(nn.Sequential):
     """smp's `decoder.aspp`: ASPP (0), SeparableConv2d (1), BN (2), ReLU."""
 
-    def __init__(self, cin: int, features: int, dtype: torch.dtype):
-        super().__init__(ASPP(cin, features, dtype=dtype),
+    def __init__(self, cin: int, features: int, dropout: float, dtype: torch.dtype):
+        super().__init__(ASPP(cin, features, dropout=dropout, dtype=dtype),
                          SeparableConv2d(features, features, 1, dtype),
                          nn.BatchNorm2d(features), nn.ReLU())
 
-    def forward(self, x):
-        return torch.relu(batch_norm(self[1](self[0](x)), self[2]))
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        return torch.relu(batch_norm(self[1](self[0](x, generator)), self[2]))
 
 
 class DeepLabV3PlusDecoder(nn.Module):
     def __init__(self, encoder_channels: Sequence[int], features: int = 256,
-                 dtype: torch.dtype = torch.bfloat16):
+                 aspp_dropout: float = 0.5, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        self.aspp = _ASPPHead(encoder_channels[-1], features, dtype)
+        self.aspp = _ASPPHead(encoder_channels[-1], features, aspp_dropout, dtype)
         self.block1 = ConvBNAct(encoder_channels[-4], 48, 1, dtype=dtype)
         self.block2 = SeparableConvBNAct(48 + features, features, 1, dtype)
 
-    def forward(self, *features):
+    def forward(self, *features, generator: Optional[torch.Generator] = None):
         low = features[-4]
-        y = self.aspp(features[-1])
+        y = self.aspp(features[-1], generator)
         y = resize_bilinear_align_corners_nchw(y, low.shape[2:]).to(low.dtype)
         return self.block2(torch.cat([y, self.block1(low)], dim=1))
 
@@ -162,37 +165,52 @@ class DeepLabV3Plus(nn.Module):
     in, fp32 logits at input resolution out."""
 
     def __init__(self, num_classes: int = 3, encoder_name: str = "efficientnet-b4",
+                 drop_connect_rate: float = 0.2, aspp_dropout: float = 0.5,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.encoder = EfficientNetEncoder(encoder_name, output_stride=16,
+                                           drop_connect_rate=drop_connect_rate,
                                            dtype=dtype)
-        self.decoder = DeepLabV3PlusDecoder(self.encoder.out_channels, dtype=dtype)
+        self.decoder = DeepLabV3PlusDecoder(self.encoder.out_channels,
+                                            aspp_dropout=aspp_dropout, dtype=dtype)
         self.segmentation_head = nn.Sequential(nn.Conv2d(256, num_classes, 1))
         self.dtype = dtype
 
-    def forward(self, x):
-        y = self.decoder(*self.encoder(x))
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        y = self.decoder(*self.encoder(x, generator), generator=generator)
         logits = conv(y, self.segmentation_head[0], self.dtype).float()
         return resize_bilinear_align_corners_nchw(logits, x.shape[2:])
 
 
 class EnhancedUNet(nn.Module):
-    """Dual-branch fusion model.  `model(x_nhwc) -> (logits_nhwc_f32,
-    {"unetpp": ..., "deeplab": ...})`, inference only.
+    """Dual-branch fusion model.  `model(x_nhwc, generator=None) ->
+    (logits_nhwc_f32, {"unetpp": ..., "deeplab": ...})`.
 
     fusion_stride=2 runs the gate, head and residual on the branch logits
-    resized to half resolution and resizes the result back."""
+    resized to half resolution and resizes the result back.  Train mode
+    applies the JAX package's regularisers: element-wise dropout after the
+    first two fusion-head layers (`fusion_dropout`), stochastic depth in
+    both encoders (`drop_connect_rate`) and the ASPP's dropout
+    (`aspp_dropout`), drawn from `generator`.  (The reference's fusion head
+    uses channel-wise `Dropout2d`; the JAX package drops elements, and the
+    port follows it.  The `Dropout2d` modules stay only for the state-dict
+    layout and are never called.)"""
 
     def __init__(self, num_classes: int = 3, fusion_stride: int = 1,
                  encoder_names: Tuple[str, str] = ("efficientnet-b5",
                                                    "efficientnet-b4"),
                  packed_decoder: bool = True, packed_fusion: bool = False,
+                 fusion_dropout: Tuple[float, float] = (0.2, 0.15),
+                 drop_connect_rate: float = 0.2, aspp_dropout: float = 0.5,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         if fusion_stride < 1:
             raise ValueError(f"fusion_stride must be >= 1, got {fusion_stride}")
-        self.unetpp = UNetPlusPlus(num_classes, encoder_names[0], dtype=dtype)
-        self.deeplab = DeepLabV3Plus(num_classes, encoder_names[1], dtype=dtype)
+        self.unetpp = UNetPlusPlus(num_classes, encoder_names[0],
+                                   drop_connect_rate=drop_connect_rate, dtype=dtype)
+        self.deeplab = DeepLabV3Plus(num_classes, encoder_names[1],
+                                     drop_connect_rate=drop_connect_rate,
+                                     aspp_dropout=aspp_dropout, dtype=dtype)
         fc = 2 * num_classes
         self.attention_gate = nn.Sequential(
             nn.Conv2d(fc, fc // 2, 3, padding=1, bias=False),
@@ -201,26 +219,31 @@ class EnhancedUNet(nn.Module):
             nn.BatchNorm2d(fc), nn.Sigmoid())
         self.fusion_head = nn.Sequential(
             nn.Conv2d(fc, 256, 3, padding=1, bias=False), nn.BatchNorm2d(256),
-            nn.ReLU(), nn.Dropout2d(0.2),
+            nn.ReLU(), nn.Dropout2d(fusion_dropout[0]),
             nn.Conv2d(256, 128, 3, padding=1, bias=False), nn.BatchNorm2d(128),
-            nn.ReLU(), nn.Dropout2d(0.15),
+            nn.ReLU(), nn.Dropout2d(fusion_dropout[1]),
             nn.Conv2d(128, 64, 3, padding=1, bias=False), nn.BatchNorm2d(64),
             nn.ReLU(), nn.Conv2d(64, num_classes, 1))
         self.fusion_residual = nn.Conv2d(fc, num_classes, 1)
         self.fusion_stride = fusion_stride
+        self.fusion_dropout = tuple(fusion_dropout)
+        self.drop_connect_rate = drop_connect_rate
+        self.aspp_dropout = aspp_dropout
         # TPU layout options of the JAX package: same math, nothing to do
         self.packed_decoder = packed_decoder
         self.packed_fusion = packed_fusion
         self.dtype = dtype
 
-    def forward(self, x_nhwc: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
-        if self.training:
-            raise NotImplementedError("the PyTorch port runs inference only")
+    def forward(self, x_nhwc: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, Dict]:
+        if self.training and max(*self.fusion_dropout, self.drop_connect_rate,
+                                 self.aspp_dropout) > 0.0:
+            need_generator(generator, "EnhancedUNet")
         x = x_nhwc.permute(0, 3, 1, 2)
         if x.is_cuda:
             x = x.contiguous(memory_format=torch.channels_last)
-        out_main = self.unetpp(x)
-        out_aux = self.deeplab(x)
+        out_main = self.unetpp(x, generator)
+        out_aux = self.deeplab(x, generator)
         fused = torch.cat([out_main, out_aux], dim=1)
         full_hw = fused.shape[2:]
         s = self.fusion_stride
@@ -236,8 +259,10 @@ class EnhancedUNet(nn.Module):
 
         head = self.fusion_head
         y = gated.to(dt)
-        for c_i, b_i in ((0, 1), (4, 5), (8, 9)):
+        for k, (c_i, b_i) in enumerate(((0, 1), (4, 5), (8, 9))):
             y = conv_bn_act(y, head[c_i], head[b_i], True, dt)
+            if self.training and k < 2:
+                y = dropout(y, self.fusion_dropout[k], generator)
         logits = conv(y, head[11], dt).float()
         logits = logits + conv(gated, self.fusion_residual, torch.float32)
         if s > 1:

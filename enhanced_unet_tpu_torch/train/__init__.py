@@ -1,1 +1,2 @@
-"""Serving (the Evaluator) of the PyTorch port; training is not ported yet."""
+"""Training (the train and eval steps, the LR table) and serving (the
+Evaluator) of the PyTorch port."""

@@ -324,3 +324,71 @@ def test_tiny_flagship_on_card_matches_cpu(cuda):
         want, _ = cpu(x)
         got, _ = gpu(x.to(cuda))
     assert _rel(got.cpu(), want) <= 1e-4
+
+
+def test_tiny_train_step_on_card_matches_cpu(cuda):
+    # chip_smoke.py phase 6c's bounds: fp32 loss and running statistics
+    # within 1e-4, the fp32 gradient tree within 1e-3, or 3x the CPU's own
+    # fp32-to-fp64 distance where that is larger (train-mode BatchNorm at
+    # batch 2 makes the gradient noise-limited), the fp64 gradient tree
+    # within 1e-4
+    import chip_smoke
+    from enhanced_unet_tpu_torch.config import get_preset
+
+    cfg = get_preset("enhanced_unet")
+    batch = chip_smoke.blob_batch(2, 56, 64, 5)
+    run = {(d, dt): chip_smoke.tiny_train_step(cfg, d, dt, batch)
+           for d in ("cpu", cuda) for dt in (torch.float32, torch.float64)}
+    cpu32, cpu64 = run["cpu", torch.float32], run["cpu", torch.float64]
+    card32, card64 = run[cuda, torch.float32], run[cuda, torch.float64]
+    assert abs(card32["loss"] - cpu32["loss"]) <= 1e-4 * abs(cpu32["loss"])
+    for name, want in cpu32["stats"].items():
+        assert (card32["stats"][name] - want).abs().max() <= 1e-4 * want.abs().max(), name
+    noise = chip_smoke.tree_rel_l2(cpu32["grads"], cpu64["grads"])
+    assert chip_smoke.tree_rel_l2(card32["grads"], cpu32["grads"]) <= max(1e-3, 3 * noise)
+    assert chip_smoke.tree_rel_l2(card64["grads"], cpu64["grads"]) <= 1e-4
+
+
+def _tiny_trained_on_card(cuda):
+    from enhanced_unet_tpu_torch.config import get_preset
+    from enhanced_unet_tpu_torch.models import get_model
+    from enhanced_unet_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    cfg = get_preset("enhanced_unet")
+    model = get_model("enhanced_unet", device=cuda, seed=6,
+                      encoder_names=("efficientnet-tiny", "efficientnet-tiny"))
+    state = create_train_state(model, cfg, 4, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    images = torch.rand(2, 64, 64, 3, generator=g, device=cuda)
+    masks = torch.randint(0, 3, (2, 64, 64), generator=g, device=cuda)
+    valid = torch.ones(2, 64, 64, dtype=torch.bool, device=cuda)
+    valid[:, :, 56:] = False
+    state, out = make_train_step(cfg)(state, images, masks, valid, g)
+    assert torch.isfinite(out["loss"])
+    return cfg, state, images, masks, valid
+
+
+def test_eval_step_on_card_launches_k1_and_k2(cuda):
+    from enhanced_unet_tpu_torch.ops.kernels import conv_fused, mbconv
+    from enhanced_unet_tpu_torch.train.trainer import make_eval_step
+
+    cfg, state, images, masks, valid = _tiny_trained_on_card(cuda)
+    k1, k2 = sum(mbconv.LAUNCHES.values()), sum(conv_fused.LAUNCHES.values())
+    logits, cms = make_eval_step(cfg)(state, images, masks, valid)
+    assert sum(mbconv.LAUNCHES.values()) > k1 and sum(conv_fused.LAUNCHES.values()) > k2
+    assert torch.isfinite(logits).all()
+    assert cms.dtype == torch.int64 and (cms.sum((1, 2)) == 64 * 64).all()
+
+
+def test_eval_forward_with_grad_raises_on_card(cuda):
+    from enhanced_unet_tpu_torch.ops.kernels import conv_fused, mbconv
+
+    _, state, images, _, _ = _tiny_trained_on_card(cuda)
+    model = state.model.eval()
+    before = (dict(mbconv.LAUNCHES), dict(conv_fused.LAUNCHES))
+    with pytest.raises(RuntimeError, match="no backward"):
+        model(images)
+    assert (dict(mbconv.LAUNCHES), dict(conv_fused.LAUNCHES)) == before
+    with torch.no_grad():
+        logits, _ = model(images)
+    assert torch.isfinite(logits).all()
