@@ -14,23 +14,27 @@ Phases (any failure exits non-zero):
     `mma.sync` kernel (the general bf16 path) on the same inputs, and that
     general path driven once through the public entry.  K1 (`mbconv`) at
     the two stage-0 serving shapes on channels_last inputs through its
-    `nhwc` kernels, each pass beside the `nchw` kernels on an NCHW copy of
-    the same values and the library's channels_last block (several
-    calls), and an expand-6 block on the `nchw` kernels beside the same
-    library block;
+    `nhwc` kernels and at a B5 stage-1 expand block (`[6,40,128,128]` mid
+    240) through its `nhwc_expand` kernels, each pass beside PR 1's `nchw`
+    kernels on an NCHW copy of the same values, at 8- and 16-row tiles,
+    and beside the library's channels_last block (several calls); and a
+    B5 stage-3 block (`[6,128,32,32]` mid 768, wider than `nhwc_expand`
+    takes) on the `nchw` kernels beside the same library block;
  3b. the kernel benches (`enhanced_unet_tpu_torch.benchmarks`): every launch
     count set to 0, then the `main()` of `dw_variants`, `mbconv_instr` and
     `mbconv_proto` at their full shapes, which hold each kernel against its
-    plain version and time it; the depthwise and copy counts, and the MBConv
-    kernels' count during `mbconv_proto`'s run, must move (B1 stage 0
-    reaches K1's `nhwc` kernels, stage 1 the `nchw` ones).  The benches'
-    rows give the kernels' entries and the copy's measured bandwidth;
+    plain version and time it; every depthwise, copy and MBConv count must
+    move (B1 stage 0 reaches K1's `nhwc` kernels, stage 1 the `nhwc_expand`
+    ones, B2's passes the `nchw` ones).  The benches' rows give the kernels'
+    entries and the copy's measured bandwidth: its default design beside
+    `Tensor.copy_`, and each of its three designs timed between two
+    timings of `Tensor.copy_`;
  4. the slice: `get_model("enhanced_unet")` at full width (EfficientNet-B5
     UNet++ + EfficientNet-B4 DeepLabV3+, bf16, seeded random weights) served
     by an `Evaluator` with TTA: three requests of two 512x512 images; every
     count set to 0 before it; the serving kernels' counts (K2's wgmma and
     small-Cin variants, K1's two `nhwc` passes) must move and every other
-    count (K1's `nchw` kernels among them) must not; the first request
+    count (K1's `nhwc_expand` and `nchw` kernels among them) must not; the first request
     records each shape K2 and K1 are called at, and no request after it may
     pack a conv's weights or fold an MBConv block's again; every K1 input
     must come channels_last with its folded weights already on the card; a
@@ -45,6 +49,15 @@ Phases (any failure exits non-zero):
     request): each pass checked against its plain version and timed beside
     it, the `nchw` kernels and the library block, and summed over one
     request beside the bounds' sum and the profiled K1 group;
+ 4d. K1's `nhwc_expand` kernels, which serving does not route to, at the
+    six stride-1 expand-block shapes of stage 1 in one request (B5:
+    `[6,40,128,128]`, `[2,40,96,96]`, `[2,40,160,160]`, mid 240; B4: the
+    same with 32 channels, mid 192; all residual): each checked against its
+    plain version and timed (both passes, 8- and 16-row tiles) beside the
+    stock path's eval-mode `MBConvBlock` on the same weights (what serving
+    runs), PR 1's `nchw` kernels, the library block and the bound, each
+    faster than PR 1's kernels; and the sum over one request (4 blocks of
+    each B5 shape and 3 of each B4 shape);
  5. cross-check: one 256x256 image, one view, bf16 on the card against the
     same weights in fp32 on the CPU (plain PyTorch path);
  6. the training step (`train.trainer`):
@@ -105,6 +118,11 @@ TINY = ("efficientnet-tiny", "efficientnet-tiny")
 # the UNet++ head block's attention1 exists (reference state dict) but is
 # never called
 UNCALLED = "unetpp.decoder.blocks.x_0_4.attention1."
+# stage 1's stride-1 expand blocks in one 2 x 512^2 TTA request (stride 4:
+# the trio at 128^2, 2 images at 96^2 and at 160^2): (n, Cin, H = W) ->
+# blocks of that shape per forward (B5: 40 channels, 4 blocks; B4: 32, 3)
+EXPAND_SERVING = {(6, 40, 128): 4, (2, 40, 96): 4, (2, 40, 160): 4,
+                  (6, 32, 128): 3, (2, 32, 96): 3, (2, 32, 160): 3}
 
 
 def bound(bytes_moved: float, ops: float, kind: str):
@@ -478,25 +496,28 @@ def main(argv=None) -> int:
 
     def k1_rows(x, p, res, iters=K1_ITERS):
         """K1's two passes at one shape on the kernels `variant_for` picks
-        (the `nhwc` ones read x's channels_last memory, the `nchw` ones an
-        NCHW copy): pass 1's sums checked within 1e-3 and pass 2's output
-        within 2e-2 of max |value| of the plain version (pass 2 from the
-        plain sums' gated weights), then timed beside the plain version and, for
-        `nhwc`, the `nchw` kernels on an NCHW copy of the same values
-        (`nchw_ms`), the kernel forced to 8- and to 16-row tiles
-        (`rows_ms`; `ms` is at the rows `nhwc_tile_rows` picks) and the
-        library's channels_last block, several PyTorch calls for both
-        passes and the gate (`library_block_ms`, on both rows)."""
+        (the `nhwc` and `nhwc_expand` ones read x's channels_last memory, the
+        `nchw` ones an NCHW copy): pass 1's sums checked within 1e-3 and pass
+        2's output within 2e-2 of max |value| of the plain version (pass 2
+        from the plain sums' gated weights), then timed beside the plain
+        version and, for `nhwc` and `nhwc_expand`, PR 1's `nchw` kernels on
+        an NCHW copy of the same values (`nchw_ms`), the kernel forced to 8-
+        and to 16-row tiles (`rows_ms`; `ms` is at the rows `nhwc_tile_rows`
+        picks) and the library's channels_last block, several PyTorch calls
+        for both passes and the gate (`library_block_ms`, on both rows)."""
         n, cin, h, w = x.shape
         mid, cout = p.wdw.shape[0], p.wproj.shape[1]
         expand = p.wexp is not None
         variant = mbconv.variant_for(x, p)
         xc = x.contiguous()
         if variant == "nhwc":
-            check(x.is_contiguous(memory_format=torch.channels_last), "a channels_last input")
             pass1, pass2 = mbconv.mbconv_nhwc_pass1, mbconv.mbconv_nhwc_pass2
+        elif variant == "nhwc_expand":
+            pass1, pass2 = mbconv.mbconv_nhwc_expand_pass1, mbconv.mbconv_nhwc_expand_pass2
         else:
             x, pass1, pass2 = xc, mbconv.mbconv_pass1, mbconv.mbconv_pass2
+        if variant != "nchw":
+            check(x.is_contiguous(memory_format=torch.channels_last), "a channels_last input")
         sums = pass1(x, p)
         want1 = mbconv.mbconv_pass1_plain(x, p)
         err1 = (sums - want1).abs().max().item()
@@ -512,16 +533,19 @@ def main(argv=None) -> int:
         del sums, got, want
         # per pixel: expand 2*cin*mid (+ bias, SiLU ~5*mid), depthwise
         # 18*mid (+ bias, SiLU ~5*mid); pass 1 adds the sum (mid), pass 2
-        # the projection 2*mid*cout (+ bias, residual 2*cout)
-        hw = n * h * w
+        # the projection 2*mid*cout (+ bias, residual 2*cout); values of x's
+        # element size, bf16 on the tensor cores' peak, fp32 on the CUDA
+        # cores'
+        hw, es = n * h * w, x.element_size()
+        kind = "bf16" if x.dtype == torch.bfloat16 else "fp32"
         ops = (2 * cin + 5) * mid * expand + 23 * mid
-        w_bytes = (mid * cin * 2 + mid * 4) * expand + mid * (9 * 2 + 4)
-        b1, by1 = bound(hw * cin * 2 + w_bytes + n * mid * 4, hw * (ops + mid), "bf16")
-        b2, by2 = bound(hw * (cin + cout) * 2 + w_bytes + n * mid * cout * 2 + cout * 4,
-                        hw * (ops + 2 * mid * cout + 2 * cout), "bf16")
-        nhwc = variant == "nhwc"
+        w_bytes = (mid * cin * es + mid * 4) * expand + mid * (9 * es + 4)
+        b1, by1 = bound(hw * cin * es + w_bytes + n * mid * 4, hw * (ops + mid), kind)
+        b2, by2 = bound(hw * (cin + cout) * es + w_bytes + n * mid * cout * es + cout * 4,
+                        hw * (ops + 2 * mid * cout + 2 * cout), kind)
+        nhwc = variant != "nchw"
         # the library's channels_last block on the same values (a view of
-        # x for `nhwc`, a channels_last copy for `nchw`)
+        # x for `nhwc` and `nhwc_expand`, a channels_last copy for `nchw`)
         xh, lp = x.permute(0, 2, 3, 1).contiguous(), p._asdict()
         library = device_ms(lambda: proto.mbconv_nhwc_library(
             xh, lp, expand=expand, residual=res), iters)
@@ -544,10 +568,10 @@ def main(argv=None) -> int:
                 bound_ms=b, bound_by=by, library_ms=None, library_block_ms=library)
 
         what = f"[{n},{cin},{h},{w}] mid {mid}"
-        r1 = row(f"{what} bf16", err1, rel1, lambda: pass1(x, p),
+        r1 = row(f"{what} {kind}", err1, rel1, lambda: pass1(x, p),
                  lambda: mbconv.mbconv_pass1_plain(x, p),
                  lambda: mbconv.mbconv_pass1(xc, p), b1, by1)
-        r2 = row(f"{what} ->{cout}{' residual' if res else ''} bf16", err2, rel2,
+        r2 = row(f"{what} ->{cout}{' residual' if res else ''} {kind}", err2, rel2,
                  lambda: pass2(x, p, wpp, res),
                  lambda: mbconv.mbconv_pass2_plain(x, p, wpp, res),
                  lambda: mbconv.mbconv_pass2(xc, p, wpp, res), b2, by2)
@@ -563,31 +587,34 @@ def main(argv=None) -> int:
               f"{r['ms']:.4f} ms (unheld {r['wall_ms']:.4f}){nchw}, plain {r['plain_ms']:.4f}"
               f"{lib}, bound {r['bound_ms']:.4f} ({r['bound_by']})")
 
-    k1_shapes = [  # stage-0 blocks at 256^2 (512^2 input), TTA trio batch 6
-        (6, 48, 1, 24, 256, 256), (6, 24, 1, 24, 256, 256),
-        (6, 40, 6, 40, 128, 128),     # a stride-1 expand-6 block of B5 stage 1
-    ]
+    bf16, fp32 = torch.bfloat16, torch.float32
+    k1_shapes = {  # stage-0 blocks at 256^2 (512^2 input), TTA trio batch 6
+        (6, 48, 1, 24, 256, 256, bf16): "nhwc", (6, 24, 1, 24, 256, 256, bf16): "nhwc",
+        (6, 40, 6, 40, 128, 128, bf16): "nhwc_expand",  # a stride-1 block of B5 stage 1
+        (6, 40, 6, 40, 128, 128, fp32): "nchw",         # the same block in fp32
+        # (stage 3's bf16 blocks, Cin 128 mid 768, reach `nchw` by the shape
+        # rule, whose kernels refuse them: they do not fit in shared memory)
+    }
     with torch.no_grad():
-        for shape in k1_shapes:
-            x, p, res = mbconv_case(*shape, torch.bfloat16)
+        for shape, expected in k1_shapes.items():
+            x, p, res = mbconv_case(*shape)
             variant = mbconv.variant_for(x, p)
-            check(variant == ("nhwc" if shape[2] == 1 else "nchw"), f"K1 {shape} -> {variant}")
+            check(variant == expected, f"K1 {shape} -> {variant}")
             got = mbconv.mbconv_infer_nchw(x, p, residual=res)     # the entry
             torch.cuda.synchronize()
             want = mbconv.mbconv_infer_nchw_plain(x, p, residual=res)
             err = (got.float() - want.float()).abs().max().item()
             rel = err / want.float().abs().max().item()
-            print(f"K1 mbconv bf16 {shape} residual={res} ({variant}): max_abs_err "
+            print(f"K1 mbconv {shape} residual={res} ({variant}): max_abs_err "
                   f"{err:.3e} rel {rel:.3e} (tol 2e-2)")
             check(rel <= 2e-2, f"mbconv {shape} rel err {rel}")
             del got, want
             r1, r2 = k1_rows(x, p, res)
             print_k1(r1, "pass 1")
             print_k1(r2, "pass 2")
-            if shape == k1_shapes[0]:
-                results["mbconv_nhwc_pass1"], results["mbconv_nhwc_pass2"] = r1, r2
-            elif shape == k1_shapes[2]:
-                results["mbconv_pass1"], results["mbconv_pass2"] = r1, r2
+            prefix = "mbconv_" if variant == "nchw" else f"mbconv_{variant}_"
+            results.setdefault(prefix + "pass1", r1)
+            results.setdefault(prefix + "pass2", r2)
             del x, p
 
     # ---- 3b. the kernel benches -------------------------------------------
@@ -603,6 +630,8 @@ def main(argv=None) -> int:
         rows += proto.main()
         proto_launches = sum(mbconv.LAUNCHES.values()) - before
     bench_mbconv = dict(mbconv.LAUNCHES)
+    check(proto_launches >= bench_mbconv["mbconv_nhwc_expand_pass1"] > 0,
+          "B1 stage 1 reaches the nhwc_expand kernels")
     bench_launches = {**depthwise.LAUNCHES, **copy_k.LAUNCHES,
                       "mbconv_proto": proto_launches}
     print(f"benches: {time.perf_counter() - t0:.2f} s, launches "
@@ -650,9 +679,14 @@ def main(argv=None) -> int:
             wall_ms=row["wall_ms"], plain_ms=row["plain_ms"], bound_ms=b, bound_by=kind,
             library_ms=None if key == "mbconv_proto" else row["library_ms"],
             **{k: row[k] for k in ("yardstick_ms",) if k in row}))
-    print(f"copy bandwidth {shape}: kernel {rows['copy']['gb_per_s']:.1f} GB/s, "
-          f"Tensor.copy_ {rows['copy']['library_gb_per_s']:.1f} GB/s measured; "
-          f"data sheet {HBM_BYTES_PER_S / 1e9:.0f} GB/s (the bounds' divisor)")
+    cr = rows["copy"]
+    designs = ", ".join(f"{k} {v:.1f}" for k, v in cr["designs_gb_per_s"].items())
+    print(f"copy bandwidth {shape}: kernel {cr['gb_per_s']:.1f} GB/s (default design), "
+          f"Tensor.copy_ {cr['library_gb_per_s']:.1f} GB/s measured; designs in turn: "
+          f"Tensor.copy_ {cr['library_gb_per_s']:.1f}, {designs}, Tensor.copy_ "
+          f"{cr['library_gb_per_s_after']:.1f} GB/s; data sheet "
+          f"{HBM_BYTES_PER_S / 1e9:.0f} GB/s (the bounds' divisor)")
+    results["copy"]["designs_gb_per_s"] = cr["designs_gb_per_s"]
 
     # ---- 4. the slice: full-width flagship served with TTA ---------------
     torch.cuda.empty_cache()
@@ -794,6 +828,56 @@ def main(argv=None) -> int:
           f"{k1_req['plain_ms']:.4f}, library block (several calls, both passes and the "
           f"gate) {k1_library:.4f}; profiled K1 group "
           f"{groups.get('mbconv (K1)', float('nan')):.4f} ms; {time.perf_counter() - t0:.1f} s")
+
+    # ---- 4d. the nhwc_expand kernels at stage 1's serving shapes ---------
+    # not routed (the serving path fuses stage 0 only): each stride-1 block
+    # shape of B5's and B4's stage 1 in one request, checked and timed beside
+    # the stock path's eval-mode block on the same weights (what serving
+    # runs), PR 1's kernels, the library block and the bound
+    from enhanced_unet_tpu_torch.models import init_random_weights_
+    from enhanced_unet_tpu_torch.models.encoders import MBConvBlock
+
+    t0 = time.perf_counter()
+    k1x_rows, k1x_req = [], {}
+    with torch.no_grad():
+        for (n, c, hw_), blocks_per_forward in EXPAND_SERVING.items():
+            fused = init_random_weights_(MBConvBlock(c, c, 6, 1, 3, fused=True), 7)
+            fused.eval().to(dev)
+            stock = MBConvBlock(c, c, 6, 1, 3, fused=False).eval().to(dev)
+            stock.load_state_dict(fused.state_dict())
+            x = torch.randn(n, hw_, hw_, c, generator=g, device=dev).bfloat16()
+            x = x.permute(0, 3, 1, 2)
+            p = fused.fold()
+            check(mbconv.variant_for(x, p) == "nhwc_expand", f"stage-1 shape {(n, c, hw_)}")
+            r1, r2 = k1_rows(x, p, True)
+            stock_ms = device_ms(lambda: stock(x), K1_ITERS)
+            row = {"shape": f"[{n},{c},{hw_},{hw_}] mid {6 * c} ->{c} residual bf16",
+                   "blocks_per_forward": blocks_per_forward,
+                   "rel_err": (r1["rel_err"], r2["rel_err"]), "stock_ms": stock_ms,
+                   **{k: r1[k] + r2[k] for k in ("ms", "wall_ms", "plain_ms", "nchw_ms",
+                                                 "bound_ms")},
+                   "rows_ms": {th: r1["rows_ms"][th] + r2["rows_ms"][th] for th in (8, 16)},
+                   "library_block_ms": r1["library_block_ms"]}
+            print(f"K1 nhwc_expand stage 1 {row['shape']}: rel err pass 1 {r1['rel_err']:.3e} "
+                  f"(tol 1e-3), pass 2 {r2['rel_err']:.3e} (tol 2e-2); both passes "
+                  f"{row['ms']:.4f} ms (pass 1 {r1['ms']:.4f}, pass 2 {r2['ms']:.4f}; unheld "
+                  f"{row['wall_ms']:.4f}; 8-row tiles {row['rows_ms'][8]:.4f}, 16-row "
+                  f"{row['rows_ms'][16]:.4f}), stock eval-mode block {stock_ms:.4f}, PR 1's "
+                  f"nchw kernels {row['nchw_ms']:.4f}, library block "
+                  f"{row['library_block_ms']:.4f}, plain {row['plain_ms']:.4f}, bound "
+                  f"{row['bound_ms']:.4f} ms")
+            check(row["ms"] < row["nchw_ms"], f"nhwc_expand faster than PR 1's kernels at "
+                  f"{row['shape']}")
+            k1x_rows.append(row)
+            for k in ("ms", "wall_ms", "stock_ms", "nchw_ms", "library_block_ms", "bound_ms"):
+                k1x_req[k] = k1x_req.get(k, 0.0) + blocks_per_forward * row[k]
+            del x, fused, stock, p
+    print(f"K1 nhwc_expand per request (stage 1 of B5 and B4: 4 and 3 stride-1 blocks a "
+          f"forward, {sum(r['blocks_per_forward'] for r in k1x_rows)} blocks; sum of blocks x "
+          f"time): kernels {k1x_req['ms']:.4f} ms (unheld {k1x_req['wall_ms']:.4f}), stock "
+          f"eval-mode blocks {k1x_req['stock_ms']:.4f}, PR 1's nchw kernels "
+          f"{k1x_req['nchw_ms']:.4f}, library block {k1x_req['library_block_ms']:.4f}, bound "
+          f"{k1x_req['bound_ms']:.4f}; {time.perf_counter() - t0:.1f} s")
 
     # ---- 5. full-width cross-check against the fp32 CPU plain path ------
     x = torch.from_numpy(synthetic_images(1, 256, 7)) - 0.5
@@ -950,11 +1034,16 @@ def main(argv=None) -> int:
                               "enhanced_unet_tpu/ops/pallas/mbconv.py:208"),
         "mbconv_nhwc_pass2": ("enhanced_unet_tpu_torch/csrc/mbconv_nhwc.cu",
                               "enhanced_unet_tpu/ops/pallas/mbconv.py:233"),
+        "mbconv_nhwc_expand_pass1": ("enhanced_unet_tpu_torch/csrc/mbconv_nhwc_expand.cu",
+                                     "enhanced_unet_tpu/ops/pallas/mbconv.py:208"),
+        "mbconv_nhwc_expand_pass2": ("enhanced_unet_tpu_torch/csrc/mbconv_nhwc_expand.cu",
+                                     "enhanced_unet_tpu/ops/pallas/mbconv.py:233"),
         "mbconv_pass1": ("enhanced_unet_tpu_torch/csrc/mbconv.cu",
                          "enhanced_unet_tpu/ops/pallas/mbconv.py:208"),
         "mbconv_pass2": ("enhanced_unet_tpu_torch/csrc/mbconv.cu",
                          "enhanced_unet_tpu/ops/pallas/mbconv.py:233"),
-        "mbconv_proto": ("enhanced_unet_tpu_torch/csrc/mbconv_nhwc.cu",
+        "mbconv_proto": ("enhanced_unet_tpu_torch/csrc/mbconv_nhwc.cu, "
+                         "enhanced_unet_tpu_torch/csrc/mbconv_nhwc_expand.cu",
                          "benchmarks/pallas_mbconv_proto.py:137/:162"),
         "dw3x3_bias_silu": ("enhanced_unet_tpu_torch/csrc/depthwise.cu",
                             "benchmarks/pallas_dw_variants.py:127/:131/:135/:145"),
@@ -964,11 +1053,12 @@ def main(argv=None) -> int:
                  "benchmarks/pallas_mbconv_instr.py:76/:117"),
     }
     # launches: the serving run's for its kernels, the benches' (3b) for
-    # theirs (K1's `nchw` kernels: B1 stage 1 and B2's passes), the general
-    # path's (phase 3) for K2's mma variant
+    # theirs (K1's `nhwc_expand` kernels: B1 stage 1; its `nchw` kernels:
+    # B2's passes), the general path's (phase 3) for K2's mma variant
     path_launches = {**launches, **bench_launches, "conv3x3_bn_act_mma": general_launches,
-                     "mbconv_pass1": bench_mbconv["mbconv_pass1"],
-                     "mbconv_pass2": bench_mbconv["mbconv_pass2"]}
+                     **{k: bench_mbconv[k] for k in ("mbconv_pass1", "mbconv_pass2",
+                                                     "mbconv_nhwc_expand_pass1",
+                                                     "mbconv_nhwc_expand_pass2")}}
     kernels = []
     for name, (source, replaces) in meta.items():
         r = results[name]
@@ -979,7 +1069,7 @@ def main(argv=None) -> int:
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
                         **{k: r[k] for k in ("library_conv_ms", "library_block_ms", "nchw_ms",
-                                             "yardstick_ms")
+                                             "yardstick_ms", "designs_gb_per_s")
                            if k in r},
                         "shape": r["shape"]})
     print(json.dumps({"kernels": kernels}))

@@ -11,8 +11,8 @@ depthwise epilogue, a cast before the projection, bf16 gated weights.  They
 differ from it only in TPU layout (a W+2 padded slab, `wdw` replicated
 along the lanes, row slabs of 32).  So the port runs them as the port's
 MBConv kernels (`ops/kernels/mbconv.py`: stage 0 on `csrc/mbconv_nhwc.cu`,
-stage 1, an expand block, on `csrc/mbconv.cu`): `mbconv_proto` only
-changes the parameter dict into `MBConvWeights`.
+stage 1, an expand block, on `csrc/mbconv_nhwc_expand.cu`): `mbconv_proto`
+only changes the parameter dict into `MBConvWeights`.
 
 The parameter dict in the port's layout: `wexp` [mid,cin] bf16, `bexp` [mid],
 `wdw` [mid,3,3] bf16, `bdw` [mid], `se_w1` [mid,se_c], `se_b1` [se_c],
@@ -137,8 +137,8 @@ def run_case(name: str, n: int, cin: int, mid: int, cout: int, h: int, w: int,
     against the plain K1 path (raises above `PLAIN_TOL`) and against the
     library's channels_last block (raises above `CHECK_TOL`), then their
     times and the library's `speedup` over the kernels.  The kernels get the
-    memory format their variant reads: channels_last for `nhwc` (stage 0),
-    contiguous NCHW for `nchw`."""
+    memory format their variant reads: channels_last for `nhwc` (stage 0)
+    and `nhwc_expand` (stage 1), contiguous NCHW for `nchw`."""
     g = torch.Generator(device=device).manual_seed(0)
     p = make_params(g, cin, mid, cout, max(1, cin // 4))
     xh = (torch.randn(n, h, w, cin, generator=g, device=device) * 0.5).to(DT)

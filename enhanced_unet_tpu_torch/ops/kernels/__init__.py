@@ -5,4 +5,5 @@ A wrapper runs the plain version only for a tensor on the CPU.  For a CUDA
 tensor it launches its kernel or raises; nothing falls back.
 """
 
-KERNEL_SOURCES = ("conv3x3_bn_act", "mbconv", "mbconv_nhwc", "depthwise", "copy")
+KERNEL_SOURCES = ("conv3x3_bn_act", "mbconv", "mbconv_nhwc", "mbconv_nhwc_expand",
+                  "depthwise", "copy")

@@ -30,7 +30,7 @@ results do not depend on the order blocks run in (no atomics).  The inner
 products run on CUDA cores in fp32; the TPU kernel's H % 8 and W % 128 limits
 and its row-slab choice do not apply.
 
-Two pairs of kernels, chosen by shape and dtype alone (`variant_for`):
+Three pairs of kernels, chosen by shape and dtype alone (`variant_for`):
 
 - `nhwc` (`csrc/mbconv_nhwc.cu`): the serving path's blocks, bf16 with no
   expand, mid = Cin and Cout multiples of 8 up to 64.  They read and write
@@ -39,7 +39,15 @@ Two pairs of kernels, chosen by shape and dtype alone (`variant_for`):
   `nhwc_tile_rows`, from the grid and the blocks the card holds) filled by
   16-byte `cp.async` copies, a depthwise whose threads own 8 channels of
   one column, and the projection on `mma.sync` tensor cores.
-- `nchw` (`csrc/mbconv.cu`): every other block (expand, fp32, other channel
+- `nhwc_expand` (`csrc/mbconv_nhwc_expand.cu`): bf16 blocks with an
+  expand, Cin and Cout multiples of 8 up to 64 and mid a multiple of 8
+  (EfficientNet's stage-1 expand blocks: 40 -> 240 -> 40, 32 -> 192 -> 32).
+  The same tiles and depthwise as `nhwc`, with the expand as a GEMM on
+  `mma.sync` in front of it and mid taken in chunks of `EXPAND_CHUNK`
+  channels (`nhwc_expand_chunks`), so shared memory does not grow with
+  mid; pass 2 accumulates the projection over the chunks in registers.
+  Channels_last in and out.
+- `nchw` (`csrc/mbconv.cu`): every other block (fp32, wider channel
   counts), on an NCHW copy of the input.
 """
 
@@ -54,14 +62,17 @@ import torch.nn.functional as F
 from enhanced_unet_tpu_torch.ops.kernels import build
 
 LAUNCHES = {"mbconv_pass1": 0, "mbconv_pass2": 0,
-            "mbconv_nhwc_pass1": 0, "mbconv_nhwc_pass2": 0}
+            "mbconv_nhwc_pass1": 0, "mbconv_nhwc_pass2": 0,
+            "mbconv_nhwc_expand_pass1": 0, "mbconv_nhwc_expand_pass2": 0}
 _SOURCE = "mbconv"
 _TILE_W = 32                       # csrc/mbconv.cu TW
 _SMEM_LIMIT = 227 * 1024           # dynamic shared memory a block may use
 _NHWC_SOURCE = "mbconv_nhwc"
 NHWC_TILE_W = 32                   # csrc/mbconv_nhwc.cu TW
-NHWC_MAX_C = 64                    # mid (= Cin) and Cout: multiples of 8 up to this
-_NHWC_SLOTS = {}                   # (pass, C, Cout, TH, device) -> blocks the card holds
+NHWC_MAX_C = 64                    # Cin (mid without an expand), Cout: multiples of 8 up to this
+_EXPAND_SOURCE = "mbconv_nhwc_expand"
+EXPAND_CHUNK = 64                  # csrc/mbconv_nhwc_expand.cu MC: mid channels per chunk
+_NHWC_SLOTS = {}                   # (source, pass, C, Cout, TH, device) -> blocks the card holds
 
 
 class MBConvWeights(NamedTuple):
@@ -257,14 +268,24 @@ def mbconv_pass2(x: torch.Tensor, p: MBConvWeights, wpp: torch.Tensor,
 
 
 def variant_for(x: torch.Tensor, p: MBConvWeights) -> str:
-    """The kernels that take this block: `"nhwc"` for bf16 with no expand,
-    mid = Cin and Cout multiples of 8 up to 64; `"nchw"` otherwise."""
-    mid, cout = p.wdw.shape[0], p.wproj.shape[1]
-    if (x.dtype == torch.bfloat16 and p.wexp is None and x.shape[1] == mid
-            and mid % 8 == 0 and mid <= NHWC_MAX_C
-            and cout % 8 == 0 and cout <= NHWC_MAX_C):
-        return "nhwc"
-    return "nchw"
+    """The kernels that take this block, from shape and dtype alone:
+    `"nhwc"` for bf16 with no expand, mid = Cin and Cout multiples of 8 up
+    to 64; `"nhwc_expand"` for bf16 with an expand, Cin and Cout multiples
+    of 8 up to 64 and mid a multiple of 8; `"nchw"` otherwise."""
+    cin, mid, cout = x.shape[1], p.wdw.shape[0], p.wproj.shape[1]
+    narrow = (cin % 8 == 0 and cin <= NHWC_MAX_C and cout % 8 == 0
+              and cout <= NHWC_MAX_C)
+    if x.dtype != torch.bfloat16 or not narrow:
+        return "nchw"
+    if p.wexp is None:
+        return "nhwc" if cin == mid else "nchw"
+    return "nhwc_expand" if mid % 8 == 0 else "nchw"
+
+
+def nhwc_expand_chunks(mid: int) -> tuple:
+    """The chunks of mid channels the `nhwc_expand` kernels take in turn:
+    `EXPAND_CHUNK` each, the last one what is left (a multiple of 8)."""
+    return tuple(min(EXPAND_CHUNK, mid - c0) for c0 in range(0, mid, EXPAND_CHUNK))
 
 
 def _nhwc_lib() -> ctypes.CDLL:
@@ -292,48 +313,74 @@ def nhwc_tile_rows(n: int, h: int, w: int, slots16: int, slots8: int) -> int:
     return 8 if cost8 < cost16 else 16
 
 
-def _nhwc_slots(which: int, c: int, cout: int, th: int, device: torch.device) -> int:
-    """Blocks of pass `which`'s kernel the card holds at once (resident
-    blocks per SM from the CUDA occupancy query, times the SMs), cached."""
-    key = (which, c, cout, th, device)
+def _expand_lib() -> ctypes.CDLL:
+    lib = build.load(_EXPAND_SOURCE)
+    if lib.mbconv_nhwc_expand_pass1.restype is not ctypes.c_int:
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.mbconv_nhwc_expand_pass1.argtypes = [vp] * 6 + [i] * 6 + [vp] * 2
+        lib.mbconv_nhwc_expand_pass1.restype = i
+        lib.mbconv_nhwc_expand_pass2.argtypes = [vp] * 8 + [i] * 8 + [vp] * 2
+        lib.mbconv_nhwc_expand_pass2.restype = i
+    return lib
+
+
+def _nhwc_slots(source: str, which: int, c: int, cout: int, th: int,
+                device: torch.device) -> int:
+    """Blocks of pass `which`'s kernel of `source` (`mbconv_nhwc` or
+    `mbconv_nhwc_expand`, input channels c) the card holds at once
+    (resident blocks per SM from the CUDA occupancy query, times the SMs),
+    cached."""
+    key = (source, which, c, cout, th, device)
     if key not in _NHWC_SLOTS:
-        lib, blocks = _nhwc_lib(), ctypes.c_int(0)
-        if which == 1:
-            rc = lib.mbconv_nhwc_pass1(None, None, None, None, 0, c, 0, 0, th,
-                                       ctypes.byref(blocks), None)
+        blocks = ctypes.c_int(0)
+        if source == _EXPAND_SOURCE:
+            lib, null = _expand_lib(), [None] * 6
+            rc = (lib.mbconv_nhwc_expand_pass1(*null, 0, c, 0, 0, 0, th,
+                                               ctypes.byref(blocks), None)
+                  if which == 1 else
+                  lib.mbconv_nhwc_expand_pass2(*null, None, None, 0, c, 0, cout, 0, 0,
+                                               0, th, ctypes.byref(blocks), None))
+        elif which == 1:
+            rc = _nhwc_lib().mbconv_nhwc_pass1(None, None, None, None, 0, c, 0, 0, th,
+                                               ctypes.byref(blocks), None)
         else:
-            rc = lib.mbconv_nhwc_pass2(None, None, None, None, None, None, 0, c, cout,
-                                       0, 0, 0, th, ctypes.byref(blocks), None)
-        build.check(rc, f"mbconv_nhwc pass {which} occupancy")
+            rc = _nhwc_lib().mbconv_nhwc_pass2(None, None, None, None, None, None, 0, c,
+                                               cout, 0, 0, 0, th, ctypes.byref(blocks),
+                                               None)
+        build.check(rc, f"{source} pass {which} occupancy")
         sms = torch.cuda.get_device_properties(device).multi_processor_count
         _NHWC_SLOTS[key] = max(1, blocks.value) * sms
     return _NHWC_SLOTS[key]
 
 
-def _tile_rows(which: int, xh: torch.Tensor, cout: int) -> int:
+def _tile_rows(source: str, which: int, xh: torch.Tensor, cout: int) -> int:
     n, h, w, c = xh.shape
-    return nhwc_tile_rows(n, h, w, _nhwc_slots(which, c, cout, 16, xh.device),
-                          _nhwc_slots(which, c, cout, 8, xh.device))
+    return nhwc_tile_rows(n, h, w, _nhwc_slots(source, which, c, cout, 16, xh.device),
+                          _nhwc_slots(source, which, c, cout, 8, xh.device))
 
 
-def _nhwc_prepare(x: torch.Tensor, p: MBConvWeights) -> torch.Tensor:
-    """Checks for the `nhwc` kernels; x's NHWC view [N, H, W, C] (no copy
-    for a channels_last x, one copy otherwise)."""
+def _nhwc_prepare(x: torch.Tensor, p: MBConvWeights,
+                  variant: str = "nhwc") -> torch.Tensor:
+    """Checks for the `nhwc` or `nhwc_expand` kernels; x's NHWC view [N, H,
+    W, C] (no copy for a channels_last x, one copy otherwise)."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if x.dtype != torch.bfloat16:
-        raise TypeError(f"the nhwc MBConv kernels take bf16, got {x.dtype}")
+        raise TypeError(f"the {variant} MBConv kernels take bf16, got {x.dtype}")
     if x.ndim != 4:
         raise ValueError(f"expected NCHW input, got shape {tuple(x.shape)}")
-    if variant_for(x, p) != "nhwc":
-        raise ValueError(f"the nhwc MBConv kernels do not take cin={x.shape[1]} "
+    if variant_for(x, p) != variant:
+        raise ValueError(f"the {variant} MBConv kernels do not take cin={x.shape[1]} "
                          f"mid={p.wdw.shape[0]} cout={p.wproj.shape[1]} "
                          f"expand={p.wexp is not None}")
-    if p.wdw.shape != (x.shape[1], 3, 3):
+    mid = p.wdw.shape[0]
+    if p.wdw.shape != (mid, 3, 3) or (p.wexp is None and mid != x.shape[1]) or (
+            p.wexp is not None and p.wexp.shape != (mid, x.shape[1])):
         raise ValueError("MBConv weights do not match the input channels")
     xh = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
     if not xh.is_contiguous() or xh.data_ptr() % 16:
-        raise ValueError("the nhwc MBConv kernels need a 16-byte aligned channels_last input")
+        raise ValueError(f"the {variant} MBConv kernels need a 16-byte aligned "
+                         "channels_last input")
     return xh
 
 
@@ -343,7 +390,7 @@ def mbconv_nhwc_pass1(x: torch.Tensor, p: MBConvWeights) -> torch.Tensor:
     (image, channel, tile), summed here in a fixed order."""
     xh = _nhwc_prepare(x, p)
     n, h, w, c = xh.shape
-    th = _tile_rows(1, xh, c)
+    th = _tile_rows(_NHWC_SOURCE, 1, xh, c)
     partial = torch.empty((n, c, -(-h // th) * -(-w // NHWC_TILE_W)), dtype=torch.float32,
                           device=x.device)
     rc = _nhwc_lib().mbconv_nhwc_pass1(
@@ -371,10 +418,66 @@ def mbconv_nhwc_pass2(x: torch.Tensor, p: MBConvWeights, wpp: torch.Tensor,
         build.ptr(xh), build.ptr(p.wdw.to(x.device, x.dtype).contiguous()),
         build.ptr(p.bdw.to(x.device, torch.float32).contiguous()), build.ptr(wpp),
         build.ptr(p.bproj.to(x.device, torch.float32).contiguous()), build.ptr(out),
-        n, c, cout, h, w, int(residual), _tile_rows(2, xh, cout), None,
+        n, c, cout, h, w, int(residual), _tile_rows(_NHWC_SOURCE, 2, xh, cout), None,
         build.stream_ptr(x.device))
     build.check(rc, "mbconv_nhwc pass 2 launch")
     LAUNCHES["mbconv_nhwc_pass2"] += 1
+    return out.permute(0, 3, 1, 2)
+
+
+def _expand_operands(x: torch.Tensor, p: MBConvWeights) -> list:
+    """The `nhwc_expand` kernels' weight pointers: wexp, bexp, wdw, bdw on
+    x's device, contiguous and 16-byte aligned (no copy for folded weights
+    already in place)."""
+    ts = [p.wexp.to(x.device, x.dtype).contiguous(),
+          p.bexp.to(x.device, torch.float32).contiguous(),
+          p.wdw.to(x.device, x.dtype).contiguous(),
+          p.bdw.to(x.device, torch.float32).contiguous()]
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError("the nhwc_expand MBConv kernels need 16-byte aligned weights")
+    return [build.ptr(t) for t in ts], ts
+
+
+def mbconv_nhwc_expand_pass1(x: torch.Tensor, p: MBConvWeights) -> torch.Tensor:
+    """Pass 1 of the `nhwc_expand` kernels: per-image channel sums [N, mid]
+    (fp32) of NCHW x (channels_last memory read in place).  One partial sum
+    per (image, channel, tile), summed here in a fixed order."""
+    xh = _nhwc_prepare(x, p, "nhwc_expand")
+    n, h, w, c = xh.shape
+    mid = p.wdw.shape[0]
+    th = _tile_rows(_EXPAND_SOURCE, 1, xh, p.wproj.shape[1])
+    partial = torch.empty((n, mid, -(-h // th) * -(-w // NHWC_TILE_W)),
+                          dtype=torch.float32, device=x.device)
+    ptrs, _keep = _expand_operands(x, p)
+    rc = _expand_lib().mbconv_nhwc_expand_pass1(
+        build.ptr(xh), *ptrs, build.ptr(partial), n, c, mid, h, w, th, None,
+        build.stream_ptr(x.device))
+    build.check(rc, "mbconv_nhwc_expand pass 1 launch")
+    LAUNCHES["mbconv_nhwc_expand_pass1"] += 1
+    return partial.sum(dim=2)
+
+
+def mbconv_nhwc_expand_pass2(x: torch.Tensor, p: MBConvWeights, wpp: torch.Tensor,
+                             residual: bool) -> torch.Tensor:
+    """Pass 2 of the `nhwc_expand` kernels: [N, Cout, H, W] bf16,
+    channels_last."""
+    xh = _nhwc_prepare(x, p, "nhwc_expand")
+    n, h, w, c = xh.shape
+    mid, cout = p.wdw.shape[0], p.wproj.shape[1]
+    if residual and c != cout:
+        raise ValueError("residual needs Cin == Cout")
+    if wpp.shape != (n, mid, cout):
+        raise ValueError(f"gated weights must be [N, mid, Cout], got {tuple(wpp.shape)}")
+    wpp = wpp.to(x.device, x.dtype).contiguous()
+    out = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
+    ptrs, _keep = _expand_operands(x, p)
+    rc = _expand_lib().mbconv_nhwc_expand_pass2(
+        build.ptr(xh), *ptrs, build.ptr(wpp),
+        build.ptr(p.bproj.to(x.device, torch.float32).contiguous()), build.ptr(out),
+        n, c, mid, cout, h, w, int(residual), _tile_rows(_EXPAND_SOURCE, 2, xh, cout),
+        None, build.stream_ptr(x.device))
+    build.check(rc, "mbconv_nhwc_expand pass 2 launch")
+    LAUNCHES["mbconv_nhwc_expand_pass2"] += 1
     return out.permute(0, 3, 1, 2)
 
 
@@ -383,14 +486,17 @@ def mbconv_infer_nchw(x: torch.Tensor, p: MBConvWeights, *,
     """Fused MBConv inference on NCHW input [N, Cin, H, W] (bf16 or fp32,
     any memory format).  CPU tensor: the plain version.  CUDA tensor: the
     two kernels of `variant_for(x, p)` with the SE gate between them, or an
-    error for what they do not take.  The `nhwc` kernels return a
-    channels_last result, the `nchw` kernels a contiguous one."""
+    error for what they do not take.  The `nhwc` and `nhwc_expand` kernels
+    return a channels_last result, the `nchw` kernels a contiguous one."""
     if x.device.type == "cpu":
         return mbconv_infer_nchw_plain(x, p, residual=residual)
     hw = x.shape[2] * x.shape[3]
-    if variant_for(x, p) == "nhwc":
+    variant = variant_for(x, p)
+    if variant == "nchw":
+        pass1, pass2 = mbconv_pass1, mbconv_pass2
+    else:
         x = x.contiguous(memory_format=torch.channels_last)
-        wpp = se_gated_projection(mbconv_nhwc_pass1(x, p), p, hw, x.dtype)
-        return mbconv_nhwc_pass2(x, p, wpp, residual)
-    wpp = se_gated_projection(mbconv_pass1(x, p), p, hw, x.dtype)
-    return mbconv_pass2(x, p, wpp, residual)
+        pass1, pass2 = ((mbconv_nhwc_pass1, mbconv_nhwc_pass2) if variant == "nhwc" else
+                        (mbconv_nhwc_expand_pass1, mbconv_nhwc_expand_pass2))
+    wpp = se_gated_projection(pass1(x, p), p, hw, x.dtype)
+    return pass2(x, p, wpp, residual)

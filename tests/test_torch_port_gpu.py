@@ -90,7 +90,8 @@ def test_conv3x3_kernel_matches_plain(cuda, dtype, shape, variant):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("cin,ratio,cout,residual", [(24, 1, 24, True),
                                                       (48, 1, 24, False),
-                                                      (16, 6, 16, True)])
+                                                      (16, 6, 16, True),
+                                                      (20, 6, 24, False)])
 def test_mbconv_kernel_matches_plain(cuda, dtype, cin, ratio, cout, residual):
     from enhanced_unet_tpu_torch.models import init_random_weights_
     from enhanced_unet_tpu_torch.models.encoders import MBConvBlock
@@ -102,14 +103,16 @@ def test_mbconv_kernel_matches_plain(cuda, dtype, cin, ratio, cout, residual):
     x = torch.randn(3, cin, 45, 70, generator=g, device=cuda).to(dtype)
     with torch.no_grad():
         p = block.fold()
-        # bf16 without expand: the nhwc kernels; fp32 or expand: the nchw ones
+        # bf16 without expand: the nhwc kernels; bf16 with an expand and
+        # channels multiples of 8: nhwc_expand; fp32 or Cin 20: the nchw ones
         variant = mbconv.variant_for(x, p)
-        assert variant == ("nhwc" if dtype == torch.bfloat16 and ratio == 1 else "nchw")
+        assert variant == ("nchw" if dtype == torch.float32 or cin % 8 else
+                           "nhwc" if ratio == 1 else "nhwc_expand")
         before = dict(mbconv.LAUNCHES)
         got = mbconv.mbconv_infer_nchw(x, p, residual=residual)
         torch.cuda.synchronize()
         want = mbconv.mbconv_infer_nchw_plain(x, p, residual=residual)
-    prefix = "mbconv_nhwc_" if variant == "nhwc" else "mbconv_"
+    prefix = "mbconv_" if variant == "nchw" else f"mbconv_{variant}_"
     moved = {k: v - before[k] for k, v in mbconv.LAUNCHES.items() if v != before[k]}
     assert moved == {f"{prefix}pass1": 1, f"{prefix}pass2": 1}
     assert got.dtype == dtype and got.shape == (3, cout, 45, 70)
@@ -194,6 +197,85 @@ def test_mbconv_nhwc_entry_points_reject_what_they_do_not_take(cuda):
     assert mbconv.LAUNCHES == before
 
 
+# (n, cin, mid, cout, h, w, residual): B5's and B4's stage-1 blocks (40 ->
+# 240 -> 40, 32 -> 192 -> 32) at a serving shape and at ragged sizes with
+# tiles at every image edge, Cout 32 and 40 with no residual, a short last
+# chunk (mid 72 = 64 + 8, K padding of the projection), one chunk (mid 24),
+# Cin 8 and 64, and a 1-row image
+_EXPAND_CASES = [
+    (6, 40, 240, 40, 128, 128, True), (2, 40, 240, 40, 37, 45, True),
+    (1, 32, 192, 32, 20, 36, True), (2, 40, 240, 32, 33, 70, False),
+    (1, 16, 96, 40, 8, 8, False), (1, 64, 72, 64, 9, 33, True),
+    (3, 8, 24, 8, 16, 32, True), (2, 24, 144, 24, 1, 50, True),
+]
+
+
+@pytest.mark.parametrize("n,cin,mid,cout,h,w,residual", _EXPAND_CASES)
+def test_mbconv_nhwc_expand_kernels_match_plain(cuda, monkeypatch, n, cin, mid, cout, h, w,
+                                                residual):
+    from enhanced_unet_tpu_torch.benchmarks import mbconv_proto
+    from enhanced_unet_tpu_torch.ops.kernels import mbconv
+
+    g = torch.Generator(device=cuda).manual_seed(8)
+    p = mbconv_proto.proto_weights(mbconv_proto.make_params(g, cin, mid, cout, 4), True)
+    x = torch.randn(n, h, w, cin, generator=g, device=cuda).bfloat16().permute(0, 3, 1, 2)
+    with torch.no_grad():
+        assert mbconv.variant_for(x, p) == "nhwc_expand"
+        before = dict(mbconv.LAUNCHES)
+        got = mbconv.mbconv_infer_nchw(x, p, residual=residual)
+        torch.cuda.synchronize()
+        moved = {k: v - before[k] for k, v in mbconv.LAUNCHES.items() if v != before[k]}
+        want_sums = mbconv.mbconv_pass1_plain(x, p)
+        want = mbconv.mbconv_infer_nchw_plain(x, p, residual=residual)
+    assert moved == {"mbconv_nhwc_expand_pass1": 1, "mbconv_nhwc_expand_pass2": 1}
+    assert got.dtype == torch.bfloat16 and got.shape == (n, cout, h, w)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert _rel(got, want) <= 2e-2
+    with torch.no_grad():                 # a plain-contiguous input: same values
+        assert torch.equal(mbconv.mbconv_infer_nchw(x.contiguous(), p, residual=residual),
+                           got)
+        wpp = mbconv.se_gated_projection(want_sums, p, h * w, x.dtype)
+        want2 = mbconv.mbconv_pass2_plain(x, p, wpp, residual)
+        for rows in (8, 16):              # both tile heights, whichever the rule picks
+            monkeypatch.setattr(mbconv, "nhwc_tile_rows", lambda *a, r=rows: r)
+            sums = mbconv.mbconv_nhwc_expand_pass1(x, p)
+            assert (sums - want_sums).abs().max() <= 1e-3 * want_sums.abs().max()
+            assert _rel(mbconv.mbconv_nhwc_expand_pass2(x, p, wpp, residual), want2) <= 2e-2
+
+
+def test_mbconv_nhwc_expand_entry_points_reject_what_they_do_not_take(cuda):
+    from enhanced_unet_tpu_torch.benchmarks import mbconv_proto
+    from enhanced_unet_tpu_torch.ops.kernels import mbconv
+
+    g = torch.Generator(device=cuda).manual_seed(9)
+
+    def weights(cin, mid, cout, expand=True):
+        return mbconv_proto.proto_weights(mbconv_proto.make_params(g, cin, mid, cout, 2),
+                                          expand)
+
+    p = weights(16, 96, 16)
+    x = torch.zeros(1, 16, 8, 8, device=cuda, dtype=torch.bfloat16)
+    wpp = torch.zeros(1, 96, 16, device=cuda, dtype=torch.bfloat16)
+    before = dict(mbconv.LAUNCHES)
+    with pytest.raises(TypeError):
+        mbconv.mbconv_nhwc_expand_pass1(x.float(), p)
+    with pytest.raises(TypeError):
+        mbconv.mbconv_nhwc_expand_pass2(x.float(), p, wpp, True)
+    with pytest.raises(ValueError, match="device"):
+        mbconv.mbconv_nhwc_expand_pass1(x.cpu(), p)
+    with pytest.raises(ValueError, match="device"):
+        mbconv.mbconv_nhwc_expand_pass2(x.cpu(), p, wpp, True)
+    for cin, mid, cout, expand in ((12, 72, 16, True), (16, 100, 16, True),
+                                   (16, 96, 72, True), (16, 16, 16, False)):
+        with pytest.raises(ValueError, match="do not take"):
+            mbconv.mbconv_nhwc_expand_pass1(
+                torch.zeros(1, cin, 8, 8, device=cuda, dtype=torch.bfloat16),
+                weights(cin, mid, cout, expand))
+    with pytest.raises(ValueError, match="gated weights"):
+        mbconv.mbconv_nhwc_expand_pass2(x, p, wpp[:, :64], True)
+    assert mbconv.LAUNCHES == before
+
+
 def test_kernels_reject_what_they_do_not_take(cuda):
     from enhanced_unet_tpu_torch.ops.kernels import conv_fused
 
@@ -270,6 +352,25 @@ def test_copy_kernel_is_exact(cuda, numel, offset):
     assert torch.equal(got, copy.copy_plain(x))
 
 
+@pytest.mark.parametrize("design", ["grid", "bulk", "stream"])
+@pytest.mark.parametrize("numel", [16 * 24 * 64 * 64 + 3, 8 * 3 + 5, 1, 7, 65536 * 5 + 1])
+def test_copy_designs_are_exact(cuda, design, numel):
+    # odd byte counts: whole 16-byte vectors (and 16 KB chunks) and a tail
+    from enhanced_unet_tpu_torch.ops.kernels import copy
+
+    g = torch.Generator(device=cuda).manual_seed(10)
+    x = torch.randn(numel, generator=g, device=cuda).bfloat16()
+    before = copy.LAUNCHES["copy"]
+    got = copy.copy_design(x, design)
+    torch.cuda.synchronize()
+    assert copy.LAUNCHES["copy"] == before + 1
+    assert torch.equal(got, x)
+    with pytest.raises(ValueError, match="aligned"):      # starts 6 bytes in
+        copy.copy_design(torch.zeros(numel + 8, device=cuda, dtype=torch.bfloat16)[3:],
+                         design)
+    assert copy.LAUNCHES["copy"] == before + 1
+
+
 def test_mbconv_proto_on_card_matches_plain(cuda):
     from enhanced_unet_tpu_torch.benchmarks import mbconv_proto
     from enhanced_unet_tpu_torch.ops.kernels import mbconv
@@ -280,8 +381,8 @@ def test_mbconv_proto_on_card_matches_plain(cuda):
     before = dict(mbconv.LAUNCHES)
     got = mbconv_proto.mbconv_proto(x, p, expand=True, residual=True)
     torch.cuda.synchronize()
-    assert mbconv.LAUNCHES["mbconv_pass1"] == before["mbconv_pass1"] + 1
-    assert mbconv.LAUNCHES["mbconv_pass2"] == before["mbconv_pass2"] + 1
+    moved = {k: v - before[k] for k, v in mbconv.LAUNCHES.items() if v != before[k]}
+    assert moved == {"mbconv_nhwc_expand_pass1": 1, "mbconv_nhwc_expand_pass2": 1}
     want = mbconv.mbconv_infer_nchw_plain(x, mbconv_proto.proto_weights(p, True),
                                           residual=True)
     assert _rel(got, want) <= 2e-2

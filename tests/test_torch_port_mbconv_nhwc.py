@@ -53,7 +53,8 @@ def test_serving_blocks_reach_nhwc(n, cin, cout, residual):
 
 @pytest.mark.parametrize("case", ["expand6", "fp32", "c20", "cout72"])
 def test_other_blocks_reach_nchw(case):
-    cin, cout, ratio, dtype = {"expand6": (24, 24, 6, torch.bfloat16),
+    # expand6: stage 3's width (Cin 128), past the nhwc_expand kernels' 64
+    cin, cout, ratio, dtype = {"expand6": (128, 128, 6, torch.bfloat16),
                                "fp32": (24, 24, 1, torch.float32),
                                "c20": (20, 24, 1, torch.bfloat16),
                                "cout72": (24, 72, 1, torch.bfloat16)}[case]
