@@ -11,10 +11,7 @@ prints one JSON row each:
   copy               : the copy kernel (`ops/kernels/copy.py`), the memory
                        floor, with `Tensor.copy_` (a device-to-device
                        memcpy) as its library call and the achieved GB/s
-                       (bytes read + written) of both; `designs_gb_per_s`
-                       gives each of the kernel's designs, timed between
-                       two timings of `Tensor.copy_` (`library_gb_per_s`
-                       before them, `library_gb_per_s_after` after)
+                       (bytes read + written) of both
   dw_only            : the row-only depthwise probe (`dw_rows_silu`), with
                        `yardstick_ms`: cuDNN's grouped 3x1 conv (the probe's
                        three row taps) + bias + SiLU on the same input, the
@@ -87,20 +84,8 @@ def main(device: Optional[Union[str, torch.device]] = None) -> List[dict]:
              lambda: mbconv.mbconv_infer_nchw_plain(x, w, residual=True), BF16_TOL, None)]:
         row = kernel_row(name, kernel, plain, tol, library=library, library_tol=0.0)
         if name == "copy":
-            # every design of the kernel, each checked, beside Tensor.copy_
-            # timed again in turn (copy_, designs, copy_)
-            lib_ms = [row["library_ms"]]
-            designs = {}
-            for design in copy.DESIGNS:
-                if not torch.equal(copy.copy_design(x, design), x):
-                    raise RuntimeError(f"copy design {design} differs from its input")
-                designs[design] = moved / device_ms(lambda d=design: copy.copy_design(x, d),
-                                                    30) / 1e6
-            lib_ms.append(device_ms(lambda: lib_out.copy_(x), 30))
             row.update(gb_per_s=moved / row["ms"] / 1e6,
-                       library_gb_per_s=moved / row["library_ms"] / 1e6,
-                       designs_gb_per_s=designs,
-                       library_gb_per_s_after=moved / lib_ms[1] / 1e6)
+                       library_gb_per_s=moved / row["library_ms"] / 1e6)
         if name == "dw_only":
             w31 = p["wdw"].to(DT).sum(2)[:, None, :, None]        # [C, 1, 3, 1]
             row["yardstick_ms"] = device_ms(lambda: F.silu(F.conv2d(

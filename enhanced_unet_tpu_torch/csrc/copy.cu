@@ -7,26 +7,11 @@
 // floor.  Their grid size is only the TPU's block size; the function is the
 // identity.
 //
-// What bounds it on the H100: bytes, and nothing else (no arithmetic).
-// Three designs, chosen by `copy_bytes_design` (`copy_bytes` runs
-// COPY_DEFAULT, the one that measured best against Tensor.copy_):
-//   0 grid:   one grid over the buffer, 4 x 16-byte loads in flight per
-//             thread, plain loads and stores (the shape of PyTorch's own
-//             elementwise kernels);
-//   1 bulk:   a persistent grid of 2 one-warp CTAs per SM; in each, one
-//             thread streams 16 KB chunks through a 4-stage shared-memory
-//             ring with TMA bulk copies: loads by
-//             cp.async.bulk.shared::cluster.global completing on an mbarrier,
-//             stores by cp.async.bulk.global.shared::cta (bulk groups), a
-//             stage refilled once its store has read it; no registers hold
-//             the data;
-//   2 stream: a persistent grid (8 blocks of 256 threads per SM), each
-//             block one even share of the buffer, 8 x 16-byte loads in
-//             flight per thread, loads that bypass L1
-//             (ld.global.nc.L1::no_allocate) and streaming stores
-//             (st.global.cs; plain stores measured slower).
-// On the H100 all three trail Tensor.copy_ by 1.5-6% (PERF.md): grid is
-// the default.
+// What bounds it on the H100: bytes, and nothing else (no arithmetic).  The
+// design reads and writes 16 bytes a thread (uint4), neighbouring threads on
+// neighbouring addresses.  Each block copies UNROLL x NT vectors, every
+// thread issuing its UNROLL loads before its first store, over a grid that
+// covers the buffer once (the shape of PyTorch's own elementwise kernels).
 // The bytes past the last whole 16-byte vector (fewer than 16) are copied
 // one a thread by the first block.  Both pointers must be 16-byte aligned.
 // Plain C interface (no PyTorch headers), loaded with ctypes.
@@ -36,26 +21,13 @@
 
 namespace {
 
-constexpr int COPY_DEFAULT = 0;  // grid: the closest to Tensor.copy_ (PERF.md)
-
-constexpr int NT = 256;             // threads per block (grid, stream)
-constexpr int UNROLL = 4;           // grid: 16-byte loads in flight per thread
-constexpr int SVEC = 8;             // stream: 16-byte loads in flight per thread
-constexpr int SBLOCKS = 8;          // stream: blocks per SM
-constexpr int STAGES = 4;           // bulk: ring stages
-constexpr int STAGE_BYTES = 16384;  // bulk: bytes per stage (a multiple of 16)
-constexpr int BULK_CTAS = 2;        // bulk: CTAs per SM
-
-__device__ __forceinline__ void copy_tail(const unsigned char* __restrict__ src,
-                                          unsigned char* __restrict__ dst, size_t from,
-                                          size_t nbytes, int lane) {
-  if (blockIdx.x == 0 && from + lane < nbytes) dst[from + lane] = src[from + lane];
-}
+constexpr int NT = 256;             // threads per block
+constexpr int UNROLL = 4;           // 16-byte loads in flight per thread
 
 __global__ void __launch_bounds__(NT)
-copy_grid_kernel(const uint4* __restrict__ src4, uint4* __restrict__ dst4, size_t nvec,
-                 const unsigned char* __restrict__ src, unsigned char* __restrict__ dst,
-                 size_t nbytes) {
+copy_kernel(const uint4* __restrict__ src4, uint4* __restrict__ dst4,
+            size_t nvec, const unsigned char* __restrict__ src,
+            unsigned char* __restrict__ dst, size_t nbytes) {
   const size_t base = (size_t)blockIdx.x * NT * UNROLL + threadIdx.x;
   uint4 v[UNROLL];
 #pragma unroll
@@ -64,165 +36,24 @@ copy_grid_kernel(const uint4* __restrict__ src4, uint4* __restrict__ dst4, size_
 #pragma unroll
   for (int k = 0; k < UNROLL; ++k)
     if (base + k * NT < nvec) dst4[base + k * NT] = v[k];
-  copy_tail(src, dst, nvec * 16, nbytes, threadIdx.x);
-}
-
-__device__ __forceinline__ uint4 ld_stream(const uint4* p) {
-  uint4 v;
-  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "l"(p));
-  return v;
-}
-
-__device__ __forceinline__ void st_stream(uint4* p, const uint4& v) {
-  asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"l"(p), "r"(v.x), "r"(v.y),
-               "r"(v.z), "r"(v.w)
-               : "memory");
-}
-
-// Block b copies vectors [b * per, (b + 1) * per), per a multiple of NT * SVEC
-// (an even split: no block runs a second, partial sweep).
-__global__ void __launch_bounds__(NT)
-copy_stream_kernel(const uint4* __restrict__ src4, uint4* __restrict__ dst4, size_t nvec,
-                   size_t per, const unsigned char* __restrict__ src,
-                   unsigned char* __restrict__ dst, size_t nbytes) {
-  const size_t lo = (size_t)blockIdx.x * per;
-  const size_t hi = lo + per < nvec ? lo + per : nvec;
-  for (size_t base = lo + threadIdx.x; base < hi; base += NT * SVEC) {
-    uint4 v[SVEC];
-#pragma unroll
-    for (int k = 0; k < SVEC; ++k)
-      if (base + k * NT < hi) v[k] = ld_stream(src4 + base + k * NT);
-#pragma unroll
-    for (int k = 0; k < SVEC; ++k)
-      if (base + k * NT < hi) st_stream(dst4 + base + k * NT, v[k]);
-  }
-  copy_tail(src, dst, nvec * 16, nbytes, threadIdx.x);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P, [%0], %1;\n"
-      "@!P bra WAIT;\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// 32 threads: thread 0 runs the ring, threads 16-31 of block 0 the tail.
-__global__ void __launch_bounds__(32)
-copy_bulk_kernel(const unsigned char* __restrict__ src, unsigned char* __restrict__ dst,
-                 size_t nbytes16, size_t nbytes) {
-  extern __shared__ __align__(128) unsigned char ring[];
-  __shared__ __align__(8) uint64_t full[STAGES];
-  if (threadIdx.x >= 16) copy_tail(src, dst, nbytes16, nbytes, threadIdx.x - 16);
-  if (threadIdx.x != 0) return;
-  const size_t chunks = (nbytes16 + STAGE_BYTES - 1) / STAGE_BYTES;
-  if (blockIdx.x >= chunks) return;
-  const int count = (int)((chunks - blockIdx.x + gridDim.x - 1) / gridDim.x);
-  for (int s = 0; s < STAGES; ++s)
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(&full[s])));
-  asm volatile("fence.mbarrier_init.release.cluster;\nfence.proxy.async.shared::cta;\n" :::
-                   "memory");
-  auto chunk = [&](int i, size_t& off, uint32_t& bytes) {
-    off = ((size_t)blockIdx.x + (size_t)i * gridDim.x) * STAGE_BYTES;
-    bytes = (uint32_t)(nbytes16 - off < (size_t)STAGE_BYTES ? nbytes16 - off : STAGE_BYTES);
-  };
-  auto load = [&](int i) {
-    size_t off;
-    uint32_t bytes;
-    chunk(i, off, bytes);
-    const uint32_t bar = smem_u32(&full[i % STAGES]);
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-                 "r"(bytes)
-                 : "memory");
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-        "[%3];\n" ::"r"(smem_u32(ring + (i % STAGES) * STAGE_BYTES)),
-        "l"(src + off), "r"(bytes), "r"(bar)
-        : "memory");
-  };
-  for (int i = 0; i < STAGES && i < count; ++i) load(i);
-  for (int i = 0; i < count; ++i) {
-    size_t off;
-    uint32_t bytes;
-    chunk(i, off, bytes);
-    mbar_wait(smem_u32(&full[i % STAGES]), (i / STAGES) & 1);
-    asm volatile(
-        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
-        "cp.async.bulk.commit_group;\n" ::"l"(dst + off),
-        "r"(smem_u32(ring + (i % STAGES) * STAGE_BYTES)), "r"(bytes)
-        : "memory");
-    const int next = i - 1 + STAGES;   // into the stage of chunk i - 1
-    if (i >= 1 && next < count) {
-      asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
-      load(next);
-    }
-  }
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-int sm_count() {
-  static int cached[64] = {0};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
-  if (!cached[dev]) {
-    int n = 0;
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    cached[dev] = n > 0 ? n : 132;
-  }
-  return cached[dev];
+  const size_t tail = nvec * 16 + threadIdx.x;
+  if (blockIdx.x == 0 && tail < nbytes) dst[tail] = src[tail];
 }
 
 }  // namespace
 
-// dst[0:nbytes] <- src[0:nbytes] on `stream` by design 0 (grid), 1 (bulk)
-// or 2 (stream).  The buffers must not overlap and must both be 16-byte
-// aligned (else cudaErrorMisalignedAddress).
-extern "C" int copy_bytes_design(const void* src, void* dst, long long nbytes, int design,
-                                 void* stream) {
-  if (design < 0 || design > 2) return static_cast<int>(cudaErrorInvalidValue);
+// dst[0:nbytes] <- src[0:nbytes] on `stream`.  The buffers must not overlap
+// and must both be 16-byte aligned (else cudaErrorMisalignedAddress).
+extern "C" int copy_bytes(const void* src, void* dst, long long nbytes,
+                          void* stream) {
   if (nbytes <= 0) return 0;
   if (((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) & 15) != 0)
     return static_cast<int>(cudaErrorMisalignedAddress);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t n = static_cast<size_t>(nbytes);
   const size_t nvec = n / 16;
-  const auto* s4 = static_cast<const uint4*>(src);
-  auto* d4 = static_cast<uint4*>(dst);
-  const auto* sb = static_cast<const unsigned char*>(src);
-  auto* db = static_cast<unsigned char*>(dst);
-  if (design == 0) {
-    const size_t blocks = nvec == 0 ? 1 : (nvec + NT * UNROLL - 1) / (NT * UNROLL);
-    copy_grid_kernel<<<(unsigned)blocks, NT, 0, s>>>(s4, d4, nvec, sb, db, n);
-  } else if (design == 2) {
-    constexpr size_t STEP = NT * SVEC;
-    const size_t steps = (nvec + STEP - 1) / STEP;
-    const size_t cap = (size_t)sm_count() * SBLOCKS;
-    const size_t blocks = steps == 0 ? 1 : (steps < cap ? steps : cap);
-    const size_t per = (steps + blocks - 1) / blocks * STEP;
-    copy_stream_kernel<<<(unsigned)blocks, NT, 0, s>>>(s4, d4, nvec, per, sb, db, n);
-  } else {
-    const cudaError_t e = cudaFuncSetAttribute(
-        copy_bulk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, STAGES * STAGE_BYTES);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    const size_t chunks = (nvec * 16 + STAGE_BYTES - 1) / STAGE_BYTES;
-    const size_t cap = (size_t)sm_count() * BULK_CTAS;
-    const size_t blocks = chunks == 0 ? 1 : (chunks < cap ? chunks : cap);
-    copy_bulk_kernel<<<(unsigned)blocks, 32, STAGES * STAGE_BYTES, s>>>(sb, db, nvec * 16, n);
-  }
+  const size_t blocks = nvec == 0 ? 1 : (nvec + NT * UNROLL - 1) / (NT * UNROLL);
+  copy_kernel<<<(unsigned)blocks, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(src), static_cast<uint4*>(dst), nvec,
+      static_cast<const unsigned char*>(src), static_cast<unsigned char*>(dst), n);
   return static_cast<int>(cudaGetLastError());
-}
-
-// The same by the design that measured best (COPY_DEFAULT).
-extern "C" int copy_bytes(const void* src, void* dst, long long nbytes, void* stream) {
-  return copy_bytes_design(src, dst, nbytes, COPY_DEFAULT, stream);
 }

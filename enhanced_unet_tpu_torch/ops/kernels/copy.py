@@ -3,25 +3,18 @@
 Replaces the Pallas copy kernels of `benchmarks/pallas_mbconv_instr.py::main`
 (`_copy_kernel` and `copy_g._k`), which measure the TPU's memory floor; their
 grid sizes are only the TPU's block sizes.  On the H100 the kernel
-(`csrc/copy.cu`) is bound by bytes and nothing else.  It has three designs
-(`DESIGNS`): `grid` (one grid over the tensor, four 16-byte loads in flight
-per thread), `bulk` (a persistent grid whose CTAs stream 16 KB chunks
-through a shared-memory ring by TMA bulk copies) and `stream` (a persistent
-grid, each block an even share, eight 16-byte loads in flight per thread,
-loads that bypass L1 and streaming stores).  `copy` runs the one the
-source names as its default, `grid`, the closest to `Tensor.copy_` on the
-H100 (all three trail it; `PERF.md`); `copy_design` runs any of them, for
-the bench that compares them.  Its time gives the
-card's measured memory rate, beside the data sheet's 3.35 TB/s.  It takes
-bf16, as the TPU kernels do, starting on a 16-byte boundary (a fresh
-allocation does; a view that starts inside its storage may not).  Nothing
-on the serving path calls it.
+(`csrc/copy.cu`) is bound by bytes and nothing else: 16-byte loads and stores,
+neighbouring threads on neighbouring addresses, four loads in flight per
+thread, one grid that covers the tensor once.  Its time gives the card's
+measured memory rate, beside the data sheet's 3.35 TB/s.  It takes bf16,
+as the TPU kernels do, starting on a 16-byte boundary (a fresh allocation
+does; a view that starts inside its storage may not).  Nothing on the
+serving path calls it.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
 
 import torch
 
@@ -29,7 +22,6 @@ from enhanced_unet_tpu_torch.ops.kernels import build
 
 LAUNCHES = {"copy": 0}
 _SOURCE = "copy"
-DESIGNS = ("grid", "bulk", "stream")     # csrc/copy.cu copy_bytes_design 0, 1, 2
 
 
 def copy_plain(x: torch.Tensor) -> torch.Tensor:
@@ -43,24 +35,13 @@ def _lib() -> ctypes.CDLL:
         lib.copy_bytes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                    ctypes.c_longlong, ctypes.c_void_p]
         lib.copy_bytes.restype = ctypes.c_int
-        lib.copy_bytes_design.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                          ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-        lib.copy_bytes_design.restype = ctypes.c_int
     return lib
 
 
 def copy(x: torch.Tensor) -> torch.Tensor:
     """A new tensor equal to x (bf16, contiguous, 16-byte aligned, any
-    shape).  CPU tensor: the plain version.  CUDA tensor: the kernel's
-    default design.  What the kernel does not take raises on either
-    device."""
-    return copy_design(x, None)
-
-
-def copy_design(x: torch.Tensor, design: Optional[str]) -> torch.Tensor:
-    """`copy` by one of `DESIGNS` on a CUDA tensor (None: the default)."""
-    if design is not None and design not in DESIGNS:
-        raise ValueError(f"copy designs are {DESIGNS}, got {design!r}")
+    shape).  CPU tensor: the plain version.  CUDA tensor: the kernel.  What
+    the kernel does not take raises on either device."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
     if x.dtype != torch.bfloat16:
@@ -72,11 +53,9 @@ def copy_design(x: torch.Tensor, design: Optional[str]) -> torch.Tensor:
     if x.device.type == "cpu":
         return copy_plain(x)
     out = torch.empty_like(x)
-    nbytes, stream = x.numel() * x.element_size(), build.stream_ptr(x.device)
-    lib = _lib()
-    rc = (lib.copy_bytes(build.ptr(x), build.ptr(out), nbytes, stream) if design is None
-          else lib.copy_bytes_design(build.ptr(x), build.ptr(out), nbytes,
-                                     DESIGNS.index(design), stream))
+    rc = _lib().copy_bytes(build.ptr(x), build.ptr(out),
+                           x.numel() * x.element_size(),
+                           build.stream_ptr(x.device))
     build.check(rc, "copy launch")
     LAUNCHES["copy"] += 1
     return out

@@ -43,9 +43,9 @@ Three pairs of kernels, chosen by shape and dtype alone (`variant_for`):
   expand, Cin and Cout multiples of 8 up to 64 and mid a multiple of 8
   (EfficientNet's stage-1 expand blocks: 40 -> 240 -> 40, 32 -> 192 -> 32).
   The same tiles and depthwise as `nhwc`, with the expand as a GEMM on
-  `mma.sync` in front of it and mid taken in chunks of `EXPAND_CHUNK`
-  channels (`nhwc_expand_chunks`), so shared memory does not grow with
-  mid; pass 2 accumulates the projection over the chunks in registers.
+  `mma.sync` in front of it and mid taken in chunks of 64 channels (the
+  last one what is left), so shared memory does not grow with mid; pass 2
+  accumulates the projection over the chunks in registers.
   Channels_last in and out.
 - `nchw` (`csrc/mbconv.cu`): every other block (fp32, wider channel
   counts), on an NCHW copy of the input.
@@ -71,7 +71,6 @@ _NHWC_SOURCE = "mbconv_nhwc"
 NHWC_TILE_W = 32                   # csrc/mbconv_nhwc.cu TW
 NHWC_MAX_C = 64                    # Cin (mid without an expand), Cout: multiples of 8 up to this
 _EXPAND_SOURCE = "mbconv_nhwc_expand"
-EXPAND_CHUNK = 64                  # csrc/mbconv_nhwc_expand.cu MC: mid channels per chunk
 _NHWC_SLOTS = {}                   # (source, pass, C, Cout, TH, device) -> blocks the card holds
 
 
@@ -280,12 +279,6 @@ def variant_for(x: torch.Tensor, p: MBConvWeights) -> str:
     if p.wexp is None:
         return "nhwc" if cin == mid else "nchw"
     return "nhwc_expand" if mid % 8 == 0 else "nchw"
-
-
-def nhwc_expand_chunks(mid: int) -> tuple:
-    """The chunks of mid channels the `nhwc_expand` kernels take in turn:
-    `EXPAND_CHUNK` each, the last one what is left (a multiple of 8)."""
-    return tuple(min(EXPAND_CHUNK, mid - c0) for c0 in range(0, mid, EXPAND_CHUNK))
 
 
 def _nhwc_lib() -> ctypes.CDLL:

@@ -352,22 +352,20 @@ def test_copy_kernel_is_exact(cuda, numel, offset):
     assert torch.equal(got, copy.copy_plain(x))
 
 
-@pytest.mark.parametrize("design", ["grid", "bulk", "stream"])
-@pytest.mark.parametrize("numel", [16 * 24 * 64 * 64 + 3, 8 * 3 + 5, 1, 7, 65536 * 5 + 1])
-def test_copy_designs_are_exact(cuda, design, numel):
-    # odd byte counts: whole 16-byte vectors (and 16 KB chunks) and a tail
+@pytest.mark.parametrize("numel", [16 * 24 * 64 * 64 + 3, 8 * 3 + 5, 65536 * 5 + 1])
+def test_copy_odd_byte_counts_and_misaligned(cuda, numel):
+    # odd byte counts: whole 16-byte vectors and a tail
     from enhanced_unet_tpu_torch.ops.kernels import copy
 
     g = torch.Generator(device=cuda).manual_seed(10)
     x = torch.randn(numel, generator=g, device=cuda).bfloat16()
     before = copy.LAUNCHES["copy"]
-    got = copy.copy_design(x, design)
+    got = copy.copy(x)
     torch.cuda.synchronize()
     assert copy.LAUNCHES["copy"] == before + 1
     assert torch.equal(got, x)
     with pytest.raises(ValueError, match="aligned"):      # starts 6 bytes in
-        copy.copy_design(torch.zeros(numel + 8, device=cuda, dtype=torch.bfloat16)[3:],
-                         design)
+        copy.copy(torch.zeros(numel + 8, device=cuda, dtype=torch.bfloat16)[3:])
     assert copy.LAUNCHES["copy"] == before + 1
 
 

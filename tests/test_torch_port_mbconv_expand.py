@@ -15,9 +15,8 @@ variable tree and carried into the port by `convert/jax_params.py`.
 - the Pallas `mbconv_infer_nchw` in interpret mode (bf16, 2e-2; its H must
   be a multiple of 8).
 
-Also: which variant each block reaches, the chunks of mid the kernels take
-and their tile rows, and that the new entry points refuse a CPU or an
-fp32 tensor without launching.
+Also: which variant each block reaches, the kernels' tile rows, and that
+the new entry points refuse a CPU or an fp32 tensor without launching.
 """
 
 import numpy as np
@@ -111,14 +110,6 @@ def test_other_expand_blocks_reach_nchw(case):
     assert mbconv.variant_for(torch.empty(2, cin, 8, 8, dtype=dtype), p) == "nchw"
 
 
-@pytest.mark.parametrize("mid,chunks", [(240, (64, 64, 64, 48)), (192, (64, 64, 64)),
-                                        (72, (64, 8)), (24, (24,)), (64, (64,))])
-def test_nhwc_expand_chunks(mid, chunks):
-    assert mbconv.EXPAND_CHUNK == 64
-    assert mbconv.nhwc_expand_chunks(mid) == chunks
-    assert sum(chunks) == mid and all(c % 8 == 0 for c in chunks)
-
-
 # (n, h, w, slots16, slots8, rows): the stage-1 serving shapes (128^2 of the
 # TTA trio, 96^2 and 160^2 of the rescaled views) and B1 stage 1 on an H100
 # (132 SMs) holding one or two blocks of a tile height per SM
@@ -191,12 +182,10 @@ def test_expand_entry_points_refuse_a_cpu_or_fp32_tensor():
     assert mbconv.LAUNCHES == before
 
 
-def test_copy_designs_on_the_cpu_are_the_plain_copy():
+def test_copy_on_the_cpu_is_the_plain_copy():
+    # an odd byte count: whole 16-byte vectors and a tail on the card
     x = torch.arange(37, dtype=torch.float32).bfloat16()
     before = dict(copy.LAUNCHES)
-    for design in copy.DESIGNS + (None,):
-        got = copy.copy_design(x, design)
-        assert torch.equal(got, x) and got.data_ptr() != x.data_ptr()
-    with pytest.raises(ValueError, match="designs"):
-        copy.copy_design(x, "dma")
+    got = copy.copy(x)
+    assert torch.equal(got, x) and got.data_ptr() != x.data_ptr()
     assert copy.LAUNCHES == before
