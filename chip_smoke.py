@@ -22,12 +22,18 @@ Phases (any failure exits non-zero):
     block (bf16 within 2e-2 of max |value|, fp32 within 1e-4; stage 3's
     wider blocks do not fit the `nchw` kernels' shared memory);
  3b. the kernel benches (`enhanced_unet_tpu_torch.benchmarks`): every launch
-    count set to 0, then the `main()` of `dw_variants`, `mbconv_instr` and
-    `mbconv_proto` at their full shapes, which hold each kernel against its
-    plain version and time it; every depthwise, copy and MBConv count must
-    move (B1 stage 0 reaches K1's `nhwc` kernels, stage 1 the `nhwc_expand`
-    ones, B2's passes the `nchw` ones).  The benches' rows give the kernels'
-    entries and the copy's measured bandwidth beside `Tensor.copy_`'s;
+    count set to 0, then the `main()` of `dw_variants` and `mbconv_instr`
+    and `mbconv_proto`'s two cases one by one, at their full shapes, which
+    hold each kernel against its plain version and time it; every
+    depthwise, copy and MBConv count must move (B1 stage 0 reaches K1's
+    `nhwc` kernels, stage 1 the `nhwc_expand` ones, B2's passes the `nchw`
+    ones).  The benches' rows give the kernels' entries (B2's bf16 passes
+    their own), each depthwise kernel's `copy_ratio` (its held time over the
+    copy kernel's) and the copy's measured bandwidth beside
+    `Tensor.copy_`'s; then `dw3x3_bias_silu` with fp32 weights (the
+    wrapper's cast in every call), and both depthwise kernels on the 2-byte
+    path (odd W, a misaligned start) and at W = 520, against their plain
+    versions;
  4. the slice: `get_model("enhanced_unet")` at full width (EfficientNet-B5
     UNet++ + EfficientNet-B4 DeepLabV3+, bf16, seeded random weights) served
     by an `Evaluator` with TTA: three requests of two 512x512 images; every
@@ -81,7 +87,8 @@ Phases (any failure exits non-zero):
         fp32-to-fp64 distance where that is larger: train-mode BatchNorm
         at batch 2 makes fp32 gradients noise-limited) and in fp64
         (gradient tree within 1e-4);
- 7. a `{"kernels": [...]}` line, the card line, and the final JSON line.
+ 7. a `{"kernels": [...]}` line, each entry's launches counted in the run
+    whose time and shape it reports, the card line, and the final JSON line.
 
 It needs no network and builds into `build/kernels/`.
 """
@@ -597,11 +604,17 @@ def main(argv=None) -> int:
         # (stage 3's bf16 blocks, Cin 128 mid 768, reach `nchw` by the shape
         # rule, whose kernels refuse them: they do not fit in shared memory)
     }
+    # the `nhwc_expand` and `nchw` kernels' entries report this phase's bf16
+    # expand block and fp32 block: their launches are counted over that case
+    # alone (every case also launches the `nchw` kernels beside its own, and
+    # phase 3b's B1 and B2 runs have entries of their own)
+    case_launches = {}
     with torch.no_grad():
         for shape, expected in k1_shapes.items():
             x, p, res = mbconv_case(*shape)
             variant = mbconv.variant_for(x, p)
             check(variant == expected, f"K1 {shape} -> {variant}")
+            reset([mbconv.LAUNCHES])
             got = mbconv.mbconv_infer_nchw(x, p, residual=res)     # the entry
             torch.cuda.synchronize()
             want = mbconv.mbconv_infer_nchw_plain(x, p, residual=res)
@@ -618,7 +631,12 @@ def main(argv=None) -> int:
             prefix = "mbconv_" if variant == "nchw" else f"mbconv_{variant}_"
             results.setdefault(prefix + "pass1", r1)
             results.setdefault(prefix + "pass2", r2)
+            case_launches[variant] = dict(mbconv.LAUNCHES)
             del x, p
+    for variant in ("nhwc_expand", "nchw"):
+        prefix = "mbconv_" if variant == "nchw" else f"mbconv_{variant}_"
+        check(min(case_launches[variant][prefix + k] for k in ("pass1", "pass2")) > 0,
+              f"the {variant} case launched {case_launches[variant]}")
 
     # ---- 3b. the kernel benches -------------------------------------------
     # each bench checks its kernels against their plain versions and times
@@ -629,14 +647,23 @@ def main(argv=None) -> int:
     reset(counters)
     with torch.no_grad():
         rows = dw_variants.main() + mbconv_instr.main()
-        before = sum(mbconv.LAUNCHES.values())
-        rows += proto.main()
-        proto_launches = sum(mbconv.LAUNCHES.values()) - before
-    bench_mbconv = dict(mbconv.LAUNCHES)
-    check(proto_launches >= bench_mbconv["mbconv_nhwc_expand_pass1"] > 0,
-          "B1 stage 1 reaches the nhwc_expand kernels")
+        bench_mbconv = dict(mbconv.LAUNCHES)          # B2's passes and its full block
+        stages = []                                   # B1's cases, counted one by one
+        for case in proto.CASES:
+            before = dict(mbconv.LAUNCHES)
+            rows.append(proto.run_case(*case, device=dev))
+            stages.append({k: v - before[k] for k, v in mbconv.LAUNCHES.items()
+                           if v != before[k]})
+    check(set(stages[0]) == {"mbconv_nhwc_pass1", "mbconv_nhwc_pass2"}
+          and set(stages[1]) == {"mbconv_nhwc_expand_pass1", "mbconv_nhwc_expand_pass2"},
+          f"B1 stage 0 reaches the nhwc kernels and stage 1 the nhwc_expand ones: {stages}")
+    check(min(bench_mbconv["mbconv_pass1"], bench_mbconv["mbconv_pass2"]) > 0,
+          f"B2's passes reach the nchw kernels: {bench_mbconv}")
+    # B1's entry reports stage 0 (`results` keeps the first case's row)
     bench_launches = {**depthwise.LAUNCHES, **copy_k.LAUNCHES,
-                      "mbconv_proto": proto_launches}
+                      "mbconv_proto": sum(stages[0].values()),
+                      "mbconv_pass1_b2": bench_mbconv["mbconv_pass1"],
+                      "mbconv_pass2_b2": bench_mbconv["mbconv_pass2"]}
     print(f"benches: {time.perf_counter() - t0:.2f} s, launches "
           f"{json.dumps(bench_launches)}, mbconv {json.dumps(mbconv.LAUNCHES)}")
     for name, count in {**bench_launches, **mbconv.LAUNCHES}.items():
@@ -651,10 +678,23 @@ def main(argv=None) -> int:
     # bias and the SiLU (~5) per element
     dw_bound = bound(elems * 4 + c * (9 * 2 + 4), elems * 23, "bf16")
     shape = f"[{n},{c},{h},{w}] bf16"
+    # B2's passes on the `nchw` kernels (mid = C, no expand): pass 1 reads
+    # x once and writes the sums, pass 2 reads x and writes the output (+
+    # the weights, the per-image gated projection); per element the
+    # depthwise with bias and SiLU (23) and the sum (1), or the projection
+    # (2*C) with bias and residual (2)
+    w_dw = c * (9 * 2 + 4)
+    pass_bounds = (bound(elems * 2 + w_dw + n * c * 4, elems * 24, "bf16"),
+                   bound(elems * 4 + w_dw + n * c * c * 2 + c * 4,
+                         elems * (23 + 2 * c + 2), "bf16"))
     entries = [("dw3x3_bias_silu", rows["dw3x3_bias_silu"], shape, dw_bound, 2e-2),
                ("dw_rows_silu", rows["dw_only"], f"{shape} bh {mbconv_instr.BH}",
                 dw_bound, 2e-2),
-               ("copy", rows["copy"], shape, bound(elems * 4, 0, "bf16"), 0.0)]
+               ("copy", rows["copy"], shape, bound(elems * 4, 0, "bf16"), 0.0),
+               ("mbconv_pass1_b2", rows["pass1"], f"B2 pass 1 {shape} mid {c} (sums)",
+                pass_bounds[0], mbconv_instr.SUMS_TOL),
+               ("mbconv_pass2_b2", rows["pass2"], f"B2 pass 2 {shape} mid {c} ->{c} residual",
+                pass_bounds[1], mbconv_instr.BF16_TOL)]
     for case in proto.CASES:
         name, n, cin, mid, cout, h, w, expand = case
         hw = n * h * w
@@ -668,20 +708,57 @@ def main(argv=None) -> int:
         entries.append(("mbconv_proto", rows[name],
                         f"{name} [{n},{cin},{h},{w}] mid {mid} residual bf16",
                         bound(hw * (cin + cout) * 2 + w_bytes, ops, "bf16"), 2e-2))
+    copy_ms = rows["copy"]["ms"]
     for key, row, what, (b, kind), tol in entries:
+        # a depthwise kernel's held time over the copy kernel's, same run:
+        # what the card really gives for the same bytes
+        ratio = {"copy_ratio": row["ms"] / copy_ms} if key.startswith("dw") else {}
         print(f"{key} {what}: max_abs_err {row['max_abs_err']:.3e} rel "
               f"{row['rel_err']:.3e} (tol {tol:g}); kernel {row['ms']:.4f} ms (unheld "
               f"{row['wall_ms']:.4f}), plain {row['plain_ms']:.4f} ms, library "
               f"{'none' if row['library_ms'] is None else format(row['library_ms'], '.4f')}"
               + (f" (yardstick: grouped 3x1 conv + bias + SiLU {row['yardstick_ms']:.4f})"
-                 if "yardstick_ms" in row else "") + f", bound {b:.4f} ms ({kind})")
+                 if "yardstick_ms" in row else "") + f", bound {b:.4f} ms ({kind})"
+              + (f", copy_ratio {ratio['copy_ratio']:.3f} (copy kernel {copy_ms:.4f} ms)"
+                 if ratio else ""))
         check(row["rel_err"] <= tol, f"{key} {what} rel err {row['rel_err']}")
         # the MBConv block's library yardstick is several calls: no library_ms
         results.setdefault(key, dict(
             shape=what, max_abs_err=row["max_abs_err"], ms=row["ms"],
             wall_ms=row["wall_ms"], plain_ms=row["plain_ms"], bound_ms=b, bound_by=kind,
             library_ms=None if key == "mbconv_proto" else row["library_ms"],
-            **{k: row[k] for k in ("yardstick_ms",) if k in row}))
+            **ratio, **{k: row[k] for k in ("yardstick_ms",) if k in row}))
+    # dw3x3 with bf16 weights, as the TPU script hands its kernels: the
+    # bench's call (fp32 weights) also runs the wrapper's cast, one more
+    # small kernel a call
+    dims = (dw_variants.N, dw_variants.C, dw_variants.H, dw_variants.W)
+    xb = torch.randn(dims, generator=g, device=dev).to(torch.bfloat16)
+    w32, b32 = (torch.randn(dims[1], 3, 3, generator=g, device=dev) * 0.1,
+                torch.randn(dims[1], generator=g, device=dev) * 0.1)
+    w16 = w32.to(torch.bfloat16)
+    results["dw3x3_bias_silu"]["bf16_weights_ms"] = device_ms(
+        lambda: depthwise.dw3x3_bias_silu(xb, w16, b32), 30)
+    print(f"dw3x3_bias_silu {list(dims)} with bf16 weights (no cast): "
+          f"{results['dw3x3_bias_silu']['bf16_weights_ms']:.4f} ms")
+    # the 2-byte path (W not a multiple of 8; a start 6 bytes into its
+    # storage) and W > 256 (runs that end mid-row), held against the plain
+    # versions; these launches come after the counts were read
+    for dims, offset, what, bh in (((2, 24, 33, 45), 0, "W not a multiple of 8", 11),
+                                   ((2, 3, 40, 256), 3, "a start 6 bytes in", 8),
+                                   ((1, 4, 64, 520), 0, "runs ending mid-row", 32)):
+        flat = torch.randn(math.prod(dims) + offset, generator=g, device=dev)
+        xs = flat.to(torch.bfloat16)[offset:].view(dims)
+        wc, bc = w32[:dims[1]], b32[:dims[1]]
+        for key, got, want in (
+                ("dw3x3_bias_silu", depthwise.dw3x3_bias_silu(xs, wc, bc),
+                 depthwise.dw3x3_bias_silu_plain(xs, wc, bc)),
+                (f"dw_rows_silu bh {bh}", depthwise.dw_rows_silu(xs, wc, bc, bh),
+                 depthwise.dw_rows_silu_plain(xs, wc, bc, bh))):
+            torch.cuda.synchronize()
+            rel = ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+            print(f"{key} {list(dims)} starting {offset} elements in ({what}): "
+                  f"rel err {rel:.3e} (tol 2e-2)")
+            check(rel <= 2e-2, f"{key} {dims} +{offset} rel err {rel}")
     cr = rows["copy"]
     print(f"copy bandwidth {shape}: kernel {cr['gb_per_s']:.1f} GB/s, Tensor.copy_ "
           f"{cr['library_gb_per_s']:.1f} GB/s measured; data sheet "
@@ -1055,6 +1132,10 @@ def main(argv=None) -> int:
         "mbconv_proto": ("enhanced_unet_tpu_torch/csrc/mbconv_nhwc.cu, "
                          "enhanced_unet_tpu_torch/csrc/mbconv_nhwc_expand.cu",
                          "benchmarks/pallas_mbconv_proto.py:137/:162"),
+        "mbconv_pass1_b2": ("enhanced_unet_tpu_torch/csrc/mbconv.cu",
+                            "benchmarks/pallas_mbconv_instr.py:89"),
+        "mbconv_pass2_b2": ("enhanced_unet_tpu_torch/csrc/mbconv.cu",
+                            "benchmarks/pallas_mbconv_instr.py:99"),
         "dw3x3_bias_silu": ("enhanced_unet_tpu_torch/csrc/depthwise.cu",
                             "benchmarks/pallas_dw_variants.py:127/:131/:135/:145"),
         "dw_rows_silu": ("enhanced_unet_tpu_torch/csrc/depthwise.cu",
@@ -1062,13 +1143,16 @@ def main(argv=None) -> int:
         "copy": ("enhanced_unet_tpu_torch/csrc/copy.cu",
                  "benchmarks/pallas_mbconv_instr.py:76/:117"),
     }
-    # launches: the serving run's for its kernels, the benches' (3b) for
-    # theirs (K1's `nhwc_expand` kernels: B1 stage 1; its `nchw` kernels:
-    # B2's passes), the general path's (phase 3) for K2's mma variant
+    # launches, each from the run whose time and shape the entry reports:
+    # the serving run's for its kernels, the benches' (3b) for theirs (B1:
+    # stage 0; B2's passes on the `nchw` kernels), the general path's (phase
+    # 3) for K2's mma variant, and phase 3's own cases for K1's
+    # `nhwc_expand` kernels (the bf16 expand block) and `nchw` ones (the
+    # fp32 block)
     path_launches = {**launches, **bench_launches, "conv3x3_bn_act_mma": general_launches,
-                     **{k: bench_mbconv[k] for k in ("mbconv_pass1", "mbconv_pass2",
-                                                     "mbconv_nhwc_expand_pass1",
-                                                     "mbconv_nhwc_expand_pass2")}}
+                     **{k: case_launches["nhwc_expand"][k]
+                        for k in ("mbconv_nhwc_expand_pass1", "mbconv_nhwc_expand_pass2")},
+                     **{k: case_launches["nchw"][k] for k in ("mbconv_pass1", "mbconv_pass2")}}
     kernels = []
     for name, (source, replaces) in meta.items():
         r = results[name]
@@ -1079,7 +1163,7 @@ def main(argv=None) -> int:
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
                         **{k: r[k] for k in ("library_conv_ms", "library_block_ms", "nchw_ms",
-                                             "yardstick_ms")
+                                             "yardstick_ms", "copy_ratio", "bf16_weights_ms")
                            if k in r},
                         "shape": r["shape"]})
     print(json.dumps({"kernels": kernels}))

@@ -13,12 +13,20 @@ Rounding points: the weights are rounded to bf16, the products and their
 sum are fp32 (the TPU kernels round each product and partial sum to bf16),
 the bias is fp32, and the SiLU output is cast to bf16.  The kernels take
 bf16 only, as the TPU kernels do; the wrappers refuse any other dtype on
-either device.
+either device.  Weights in another dtype are cast on every call (one more
+small kernel).
 
 What bounds them on the H100: bytes (about 23 operations per element on 4
-bytes moved in bf16, far below the card's bf16 ridge of about 295).  See
-`csrc/depthwise.cu` for what the design does about it.  Nothing on the
-serving path calls these kernels; the benches in
+bytes moved in bf16, far below the card's bf16 ridge of about 295).  The
+kernels (`csrc/depthwise.cu`) stream rows: one warp takes 256 columns of
+one plane (8 a lane, one 16-byte vector) down a strip of output rows,
+keeps a window of three input rows in registers and the next rows in
+flight by `cp.async`, and takes the column neighbours from the adjacent
+lanes by shuffles; each input row is read once a strip.  `dw_rows_silu`
+slides the same window with the probe's row map.  Widths that are not a
+multiple of 8 and tensors that do not start 16-byte aligned take the same
+loop with 2-byte accesses; the kernel chooses from shape and alignment.
+Nothing on the serving path calls these kernels; the benches in
 `enhanced_unet_tpu_torch/benchmarks/` do.
 """
 

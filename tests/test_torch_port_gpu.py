@@ -297,7 +297,12 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     assert conv_fused.LAUNCHES == before
 
 
-_DW_SHAPES = [(2, 1, 37, 45), (1, 3, 64, 70), (2, 24, 33, 129)]
+# The depthwise kernels' paths: W not a multiple of 8 (45, 129, 301: the
+# 2-byte path, 301 over two warp runs), W = 256 (one full warp run), W =
+# 520 (runs that end mid-row, the edge columns read from the next run), H
+# not a multiple of the 16-row strip (37, 33, 70), more than 65,535 planes.
+_DW_SHAPES = [(2, 1, 37, 45), (1, 3, 64, 70), (2, 24, 33, 129), (2, 3, 40, 256),
+              (1, 2, 70, 520), (1, 2, 40, 301), (1, 70000, 8, 8)]
 
 
 @pytest.mark.parametrize("shape", _DW_SHAPES)
@@ -317,8 +322,14 @@ def test_dw3x3_kernel_matches_plain(cuda, shape):
     assert _rel(got, want) <= 2e-2
 
 
+# beside _DW_SHAPES' paths: slabs cut into several strips (bh 64, 128),
+# bh = H (one slab, every tap row after the first clamped), bh = 1, and
+# every case with more than one slab ends in the clamped last slab
 @pytest.mark.parametrize("shape,bh", [((2, 1, 40, 45), 8), ((1, 3, 64, 70), 32),
-                                      ((2, 24, 96, 130), 32)])
+                                      ((2, 24, 96, 130), 32), ((2, 3, 128, 256), 64),
+                                      ((1, 2, 96, 520), 32), ((1, 2, 40, 301), 8),
+                                      ((1, 3, 48, 64), 48), ((1, 2, 128, 256), 128),
+                                      ((2, 2, 6, 40), 1), ((1, 70000, 8, 8), 4)])
 def test_dw_rows_kernel_matches_plain(cuda, shape, bh):
     from enhanced_unet_tpu_torch.ops.kernels import depthwise
 
@@ -333,6 +344,27 @@ def test_dw_rows_kernel_matches_plain(cuda, shape, bh):
     want = depthwise.dw_rows_silu_plain(x, wdw, bdw, bh)
     assert got.dtype == torch.bfloat16 and got.shape == want.shape
     assert _rel(got, want) <= 2e-2
+
+
+@pytest.mark.parametrize("offset", [3, 8])
+def test_dw_kernels_take_any_start(cuda, offset):
+    # a contiguous view 6 bytes into its storage takes the 2-byte path; 16
+    # bytes in, the 16-byte one
+    from enhanced_unet_tpu_torch.ops.kernels import depthwise
+
+    shape = (2, 3, 40, 256)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    flat = torch.randn(2 * 3 * 40 * 256 + offset, generator=g, device=cuda).bfloat16()
+    x = flat[offset:].view(shape)
+    wdw = torch.randn(3, 3, 3, generator=g, device=cuda) * 0.3
+    bdw = torch.randn(3, generator=g, device=cuda) * 0.1
+    assert x.is_contiguous()
+    before = dict(depthwise.LAUNCHES)
+    got = (depthwise.dw3x3_bias_silu(x, wdw, bdw), depthwise.dw_rows_silu(x, wdw, bdw, 8))
+    torch.cuda.synchronize()
+    assert depthwise.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    assert _rel(got[0], depthwise.dw3x3_bias_silu_plain(x, wdw, bdw)) <= 2e-2
+    assert _rel(got[1], depthwise.dw_rows_silu_plain(x, wdw, bdw, 8)) <= 2e-2
 
 
 @pytest.mark.parametrize("numel,offset", [(16 * 24 * 64 * 64, 0), (8 * 3 + 5, 0),
