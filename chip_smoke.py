@@ -17,10 +17,12 @@ Phases (any failure exits non-zero):
     `nhwc` kernels and at a B5 stage-1 expand block (`[6,40,128,128]` mid
     240) through its `nhwc_expand` kernels, each pass beside the `nchw`
     kernels on an NCHW copy of the same values, at 8- and 16-row tiles,
-    and beside the library's channels_last block (several calls); and the
-    same stage-1 block in fp32 on the `nchw` kernels beside the library
-    block (bf16 within 2e-2 of max |value|, fp32 within 1e-4; stage 3's
-    wider blocks do not fit the `nchw` kernels' shared memory);
+    and beside the library's channels_last block (several calls); and on
+    the `nchw` kernels the same stage-1 block in fp32, stage 0's two blocks
+    in fp32 and a stage-3 (128 -> 768 -> 128 at 32^2) and a stage-6 block
+    (512 -> 3072 -> 512 at 16^2) in bf16, each beside its plain version,
+    the library block and its bound (bf16 within 2e-2 of max |value|, fp32
+    within 1e-4);
  3b. the kernel benches (`enhanced_unet_tpu_torch.benchmarks`): every launch
     count set to 0, then the `main()` of `dw_variants` and `mbconv_instr`
     and `mbconv_proto`'s two cases one by one, at their full shapes, which
@@ -28,7 +30,8 @@ Phases (any failure exits non-zero):
     depthwise, copy and MBConv count must move (B1 stage 0 reaches K1's
     `nhwc` kernels, stage 1 the `nhwc_expand` ones, B2's passes the `nchw`
     ones).  The benches' rows give the kernels' entries (B2's bf16 passes
-    their own), each depthwise kernel's `copy_ratio` (its held time over the
+    their own, beside the library's channels_last block on the same
+    values), each depthwise kernel's `copy_ratio` (its held time over the
     copy kernel's) and the copy's measured bandwidth beside
     `Tensor.copy_`'s; then `dw3x3_bias_silu` with fp32 weights (the
     wrapper's cast in every call), and both depthwise kernels on the 2-byte
@@ -39,7 +42,8 @@ Phases (any failure exits non-zero):
     by an `Evaluator` with TTA: three requests of two 512x512 images; every
     count set to 0 before it; the serving kernels' counts (K2's wgmma and
     small-Cin variants, K1's two `nhwc` passes) must move and every other
-    count (K1's `nhwc_expand` and `nchw` kernels among them) must not; the first request
+    count (K1's `nhwc_expand` and `nchw` kernels among them: the bf16
+    request launches no `nchw` kernel) must not; the first request
     records each shape K2 and K1 are called at, and no request after it may
     pack a conv's weights or fold an MBConv block's again; every K1 input
     must come channels_last with its folded weights already on the card; a
@@ -601,13 +605,15 @@ def main(argv=None) -> int:
         (6, 48, 1, 24, 256, 256, bf16): "nhwc", (6, 24, 1, 24, 256, 256, bf16): "nhwc",
         (6, 40, 6, 40, 128, 128, bf16): "nhwc_expand",  # a stride-1 block of B5 stage 1
         (6, 40, 6, 40, 128, 128, fp32): "nchw",         # the same block in fp32
-        # (stage 3's bf16 blocks, Cin 128 mid 768, reach `nchw` by the shape
-        # rule, whose kernels refuse them: they do not fit in shared memory)
+        # stage 0's blocks in fp32 (a model with compute_dtype float32)
+        (6, 48, 1, 24, 256, 256, fp32): "nchw", (6, 24, 1, 24, 256, 256, fp32): "nchw",
+        # a stage-3 and a stage-6 block of B5 in bf16 (wider than 64 channels)
+        (6, 128, 6, 128, 32, 32, bf16): "nchw", (6, 512, 6, 512, 16, 16, bf16): "nchw",
     }
     # the `nhwc_expand` and `nchw` kernels' entries report this phase's bf16
-    # expand block and fp32 block: their launches are counted over that case
-    # alone (every case also launches the `nchw` kernels beside its own, and
-    # phase 3b's B1 and B2 runs have entries of their own)
+    # expand block and first fp32 block: their launches are counted over that
+    # case alone (every case also launches the `nchw` kernels beside its own,
+    # and phase 3b's B1 and B2 runs have entries of their own)
     case_launches = {}
     with torch.no_grad():
         for shape, expected in k1_shapes.items():
@@ -631,7 +637,7 @@ def main(argv=None) -> int:
             prefix = "mbconv_" if variant == "nchw" else f"mbconv_{variant}_"
             results.setdefault(prefix + "pass1", r1)
             results.setdefault(prefix + "pass2", r2)
-            case_launches[variant] = dict(mbconv.LAUNCHES)
+            case_launches.setdefault(variant, dict(mbconv.LAUNCHES))
             del x, p
     for variant in ("nhwc_expand", "nchw"):
         prefix = "mbconv_" if variant == "nchw" else f"mbconv_{variant}_"
@@ -695,9 +701,8 @@ def main(argv=None) -> int:
                 pass_bounds[0], mbconv_instr.SUMS_TOL),
                ("mbconv_pass2_b2", rows["pass2"], f"B2 pass 2 {shape} mid {c} ->{c} residual",
                 pass_bounds[1], mbconv_instr.BF16_TOL)]
-    for case in proto.CASES:
-        name, n, cin, mid, cout, h, w, expand = case
-        hw = n * h * w
+    for name, bn, cin, mid, cout, bh, bw, expand in proto.CASES:
+        hw = bn * bh * bw
         # the block once: x read and the output written once (+ weights);
         # per pixel the expand (2*cin*mid, bias and SiLU ~5*mid), the
         # depthwise with bias and SiLU (23*mid) and its pool sum (mid), the
@@ -706,7 +711,7 @@ def main(argv=None) -> int:
         w_bytes = ((mid * cin * 2 + mid * 4) * expand + mid * (9 * 2 + 4)
                    + mid * cout * 4 + cout * 4)
         entries.append(("mbconv_proto", rows[name],
-                        f"{name} [{n},{cin},{h},{w}] mid {mid} residual bf16",
+                        f"{name} [{bn},{cin},{bh},{bw}] mid {mid} residual bf16",
                         bound(hw * (cin + cout) * 2 + w_bytes, ops, "bf16"), 2e-2))
     copy_ms = rows["copy"]["ms"]
     for key, row, what, (b, kind), tol in entries:
@@ -728,6 +733,22 @@ def main(argv=None) -> int:
             wall_ms=row["wall_ms"], plain_ms=row["plain_ms"], bound_ms=b, bound_by=kind,
             library_ms=None if key == "mbconv_proto" else row["library_ms"],
             **ratio, **{k: row[k] for k in ("yardstick_ms",) if k in row}))
+    # B2's passes beside the library's channels_last block (several calls,
+    # both passes and the gate) on the bench's values: its seeded parameters
+    # and input, drawn again in the same order
+    gb = torch.Generator(device=dev).manual_seed(0)
+    pb = proto.make_params(gb, c, c, c, 6)
+    b2_dims = (mbconv_instr.N, mbconv_instr.C, mbconv_instr.H, mbconv_instr.W)
+    xb = (torch.randn(b2_dims, generator=gb, device=dev) * 0.5).to(proto.DT)
+    check(b2_dims == (n, c, h, w), f"B2's library block at the bench's shape: {b2_dims}")
+    xbh = xb.permute(0, 2, 3, 1).contiguous()
+    b2_block = device_ms(lambda: proto.mbconv_nhwc_library(xbh, pb, expand=False,
+                                                            residual=True), K1_ITERS)
+    for key in ("mbconv_pass1_b2", "mbconv_pass2_b2"):
+        results[key]["library_block_ms"] = b2_block
+    print(f"B2 passes {list(xb.shape)} bf16 mid {c}: library block (both passes and the "
+          f"gate, several calls) {b2_block:.4f} ms")
+    del xb, xbh
     # dw3x3 with bf16 weights, as the TPU script hands its kernels: the
     # bench's call (fp32 weights) also runs the wrapper's cast, one more
     # small kernel a call
@@ -845,6 +866,8 @@ def main(argv=None) -> int:
     off_path = {k: v for k, v in {**launches, **depthwise.LAUNCHES,
                                   **copy_k.LAUNCHES}.items() if k not in serving}
     check(not any(off_path.values()), f"the serving path launched {off_path}")
+    check(launches["mbconv_pass1"] == launches["mbconv_pass2"] == 0,
+          f"the bf16 request launched no nchw kernel: {launches}")
     check(packs[0] > 0 and not any(packs[1:]), f"K2 weight packs per request {packs}")
     k1_per_request = sum(c for c, _ in k1_calls.values())
     check(launches["mbconv_nhwc_pass1"] == launches["mbconv_nhwc_pass2"]

@@ -5,11 +5,12 @@
 `csrc/depthwise.cu` fixes three constants: `NT` threads a block, `SH`
 output rows a strip and `PF` rows in flight a warp.  This script builds the
 source once per setting in `VARIANTS` (the constants rewritten, everything
-else as committed; one `nvcc` each, all started together, into
-`build/dw_sweep/`, with each kernel's registers from `ptxas -v`), checks both kernels of every build against their plain
-versions at [16,24,256,256] bf16, bh 32 (raises above `TOL`), and times
-them with `microtime.device_ms` (held), the variants in order and then in
-reverse, beside the copy kernel on the same bytes.  The kernels are called
+else as committed, its headers from `csrc/`; one `nvcc` each, all started
+together, into `build/dw_sweep/`, with each kernel's registers from `ptxas
+-v`), checks both kernels of every build against their plain versions at
+[16,24,256,256] bf16, bh 32 (raises above `TOL`), and times them with
+`microtime.device_ms` (held), the variants in order and then in reverse,
+beside the copy kernel on the same bytes.  The kernels are called
 through the C interface with bf16 weights, so no cast kernel is timed.
 Prints the device row, then one JSON row a variant.
 """
@@ -66,14 +67,16 @@ def build_variants(variants: List[Tuple[int, int, int]]
     procs = {}
     for v in variants:
         src = variant_source(*v)
-        digest = hashlib.sha256(src.encode()).hexdigest()[:12]
+        # the committed library's name hashes the headers the source includes
+        digest = hashlib.sha256(src.encode() + build.library_path("depthwise").name.encode()
+                                ).hexdigest()[:12]
         cu = SWEEP_DIR / f"dw_nt{v[0]}_sh{v[1]}_pf{v[2]}-{digest}.cu"
         lib = cu.with_suffix(".so")
         proc = None
         if not lib.exists():
             cu.write_text(src)
             proc = subprocess.Popen([build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas", "-v",
-                                     "-o", str(lib), str(cu)],
+                                     "-I", str(build.CSRC), "-o", str(lib), str(cu)],
                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         procs[v] = (proc, lib)
     libs = {}

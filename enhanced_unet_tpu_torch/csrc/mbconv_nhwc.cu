@@ -31,7 +31,7 @@
 // grid fills the card in fewer waves of rows, e.g. mid 24 at 256^2 or the
 // small TTA views), with 4 * C threads: one thread per (16-byte channel
 // group, tile column).
-// What the design does about the faults of csrc/mbconv.cu:
+// What the design does about the faults of the first csrc/mbconv.cu:
 // - Integer division by runtime sizes on every element: the tile geometry and
 //   C are compile-time (one instantiation per C), the thread's (group,
 //   column) is fixed once, and the loops over rows and taps are unrolled.
@@ -66,11 +66,11 @@
 // for more blocks per SM, spilled registers and ran slower.
 // Plain C interface (no PyTorch headers), loaded with ctypes.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mbconv_common.cuh"
 
 namespace {
+
+using namespace mbconv;
 
 constexpr int TW = 32;                          // output columns per tile
 constexpr int HW = TW + 2;                      // haloed columns
@@ -92,53 +92,6 @@ struct Geo {
 // The haloed tile of TH output rows (8 or 16: one or two chunks), halves.
 template <int C, int TH>
 constexpr int HALO = (TH + 2) * HW * C;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ float lo_f(uint32_t v) { return __uint_as_float(v << 16); }
-__device__ __forceinline__ float hi_f(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// v * sigmoid(v) = v / (1 + 2^(-v log2 e)), one ex2 and one rcp on the
-// special-function unit (relative error about 2^-22 each); where the power
-// overflows (v < -88) the reciprocal is 0.
-__device__ __forceinline__ float silu(float v) {
-  float e, r;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(e) : "f"(v * -1.4426950408889634f));
-  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(1.f + e));
-  return v * r;
-}
 
 // xs[r][c][:] <- x[n, h0 + r - 1, w0 + c - 1, :] by 16-byte cp.async copies,
 // zeros outside the image (the depthwise's padding); waited for by
@@ -163,20 +116,6 @@ __device__ __forceinline__ void load_halo(const uint16_t* __restrict__ x, uint16
 __device__ __forceinline__ void halo_wait() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   __syncthreads();
-}
-
-// The thread's 8 channels: 9 taps of weights and the bias, in fp32.
-template <int C>
-__device__ __forceinline__ void load_dw(const uint16_t* __restrict__ wdw,
-                                        const float* __restrict__ bdw, int cg,
-                                        float (&w)[9][8], float (&b)[8]) {
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int c = cg * 8 + k;
-    b[k] = bdw[c];
-#pragma unroll
-    for (int t = 0; t < 9; ++t) w[t][k] = lo_f(wdw[c * 9 + t]);
-  }
 }
 
 // Depthwise 3x3 + bias + SiLU (fp32) of the thread's 8 channels down tile
@@ -235,7 +174,7 @@ mbconv_nhwc_pass1_kernel(const uint16_t* __restrict__ x, const uint16_t* __restr
   load_halo<C, TH>(x, xs, H, W, n, h0, w0);
   const int cg = threadIdx.x % G::CG, col = threadIdx.x / G::CG;
   float w[9][8], b[8];
-  load_dw<C>(wdw, bdw, cg, w, b);
+  load_dw(wdw, bdw, cg * 8, w, b);
 
   const bool col_in = w0 + col < W;
   const int rows = H - h0;                 // output rows inside the image
@@ -367,7 +306,7 @@ mbconv_nhwc_pass2_kernel(const uint16_t* __restrict__ x, const uint16_t* __restr
   }
   const int cg = threadIdx.x % G::CG, col = threadIdx.x / G::CG;
   float w[9][8], b[8];
-  load_dw<C>(wdw, bdw, cg, w, b);
+  load_dw(wdw, bdw, cg * 8, w, b);
 
   auto stage = [&](int o, const float (&v)[8]) {
     uint16_t* a = as + ((o % CHUNK) * TW + col) * G::LD + cg * 8;
@@ -444,7 +383,7 @@ int launch_pass2(const void* x, const void* wdw, const void* bdw, const void* wp
 
 }  // namespace
 
-// x [N,H,W,C] bf16 (16-byte aligned); wdw [C,3,3] bf16; bdw [C] fp32;
+// x [N,H,W,C] bf16; wdw [C,3,3] bf16; bdw [C] fp32 (all 16-byte aligned);
 // partial [N, C, ceil(H/TH) * ceil(W/32)] fp32.  C a multiple of 8, <= 64;
 // TH (tile rows) 8 or 16.  With `blocks` not null, nothing is launched:
 // *blocks <- the blocks of that kernel one SM holds.

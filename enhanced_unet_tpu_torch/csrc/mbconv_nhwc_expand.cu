@@ -27,7 +27,8 @@
 // 2 x 240 per pixel, on CUDA cores) are what is left.
 //
 // One block takes one image and a tile of TH x 32 output pixels (TH = 16 or
-// 8), 256 threads.  What the design does about the faults of csrc/mbconv.cu:
+// 8), 256 threads.  What the design does about the faults of the first
+// csrc/mbconv.cu:
 // - The expand on CUDA cores with a device-memory weight load and integer
 //   divisions per FMA: it is a GEMM on `mma.sync.m16n8k16`: M the haloed
 //   pixels of 8 output rows (10 x 34 = 340, 22 m16 tiles), K = Cin padded
@@ -61,11 +62,11 @@
 // against which the two GEMMs on the tensor cores are small.
 // Plain C interface (no PyTorch headers), loaded with ctypes.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mbconv_common.cuh"
 
 namespace {
+
+using namespace mbconv;
 
 constexpr int NT = 256;                         // threads per block
 constexpr int TW = 32;                          // output columns per tile
@@ -93,54 +94,8 @@ struct Geo {
 template <int TH>
 constexpr int XROWS = ((TH + 2) * HW + 15) / 16 * 16;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(bytes)
-               : "memory");
-}
-
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ float lo_f(uint32_t v) { return __uint_as_float(v << 16); }
-__device__ __forceinline__ float hi_f(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// v * sigmoid(v) = v / (1 + 2^(-v log2 e)), one ex2 and one rcp on the
-// special-function unit; where the power overflows (v < -88) it is 0.
-__device__ __forceinline__ float silu(float v) {
-  float e, r;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(e) : "f"(v * -1.4426950408889634f));
-  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(1.f + e));
-  return v * r;
 }
 
 // xs[r * HW + c][0:CIN] <- x[n, h0 + r - 1, w0 + c - 1, :] by 16-byte
@@ -236,34 +191,6 @@ __device__ __forceinline__ void expand_step(const uint16_t* xs, const uint16_t* 
         }
     }
   }
-}
-
-// The thread's 8 channels c0..c0+7: 9 taps of weights (one 144-byte run of
-// wdw [mid][9], 16-byte aligned) and the bias, in fp32.
-__device__ __forceinline__ void load_dw(const uint16_t* __restrict__ wdw,
-                                        const float* __restrict__ bdw, int c0,
-                                        float (&w)[9][8], float (&b)[8]) {
-  const uint4* src = reinterpret_cast<const uint4*>(wdw + c0 * 9);
-  uint32_t words[36];
-#pragma unroll
-  for (int q = 0; q < 9; ++q) {
-    const uint4 v = src[q];
-    words[4 * q] = v.x;
-    words[4 * q + 1] = v.y;
-    words[4 * q + 2] = v.z;
-    words[4 * q + 3] = v.w;
-  }
-#pragma unroll
-  for (int k = 0; k < 8; ++k)
-#pragma unroll
-    for (int t = 0; t < 9; ++t) {
-      const int i = k * 9 + t;
-      w[t][k] = (i & 1) ? hi_f(words[i >> 1]) : lo_f(words[i >> 1]);
-    }
-  const float4 b0 = *reinterpret_cast<const float4*>(bdw + c0);
-  const float4 b1 = *reinterpret_cast<const float4*>(bdw + c0 + 4);
-  b[0] = b0.x, b[1] = b0.y, b[2] = b0.z, b[3] = b0.w;
-  b[4] = b1.x, b[5] = b1.y, b[6] = b1.z, b[7] = b1.w;
 }
 
 // Depthwise 3x3 + bias + SiLU (fp32) of the thread's 8 channels (group cg

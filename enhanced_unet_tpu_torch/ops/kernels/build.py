@@ -3,8 +3,9 @@
 Each source `enhanced_unet_tpu_torch/csrc/<name>.cu` has a plain C interface
 and is compiled by `nvcc` for Hopper (`sm_90a`) into its own shared library
 under `build/kernels/` at the repository root, at first use, then loaded with
-`ctypes`.  The library's file name carries a hash of its source, so an edited
-source is rebuilt.  A missing `nvcc` or a failed build raises.
+`ctypes`.  The library's file name carries a hash of its source and of the
+local headers it includes (`#include "..."` under `csrc/`), so an edited
+source or header is rebuilt.  A missing `nvcc` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -37,9 +39,25 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path, seen: Dict[Path, bytes]) -> None:
+    """`path` and every local header it includes, transitively, by content."""
+    if path in seen:
+        return
+    seen[path] = text = path.read_bytes()
+    for name in _LOCAL_INCLUDE.findall(text):
+        _sources(path.parent / name.decode(), seen)
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    seen: Dict[Path, bytes] = {}
+    _sources(CSRC / f"{name}.cu", seen)
+    digest = hashlib.sha256()
+    for path, text in seen.items():
+        digest.update(path.name.encode() + b"\0" + text)
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def _nvcc_command(name: str, out: Path) -> list:

@@ -17,18 +17,14 @@ compute dtype, pass-1 sums come from the fp32 SiLU output, pass 2 casts the
 SiLU output before the projection, and the gated projection weights are in
 the compute dtype.  The kernels take bf16 (the serving dtype) and fp32.
 
-What bounds it on the H100: bytes.  At the stage-0 shapes (48->24 and 24->24
-channels at half the image resolution, no expand) the block does about 20
-FLOPs per byte it must move in bf16, far below the card's bf16 ridge of about
-295, and pass 2 reads its input a second time.  The design keeps the
-mid-channel tensor out of device memory: each block stages one haloed input
-tile in shared memory, expands and runs the depthwise there and, in pass 2,
-projects from shared memory, so device memory sees the input twice and the
-output once.  Pass 1 writes one partial sum per (image, tile, channel),
-reduced inside the block in a fixed order; the wrapper sums the tiles, so
-results do not depend on the order blocks run in (no atomics).  The inner
-products run on CUDA cores in fp32; the TPU kernel's H % 8 and W % 128 limits
-and its row-slab choice do not apply.
+Each kernel pair keeps the mid-channel tensor out of device memory: a block
+stages a haloed input tile in shared memory, expands it and runs the
+depthwise there and, in pass 2, projects from shared memory, so device
+memory sees the input twice and the output once.  Pass 1 writes one partial
+sum per (image, tile, channel), reduced inside the block in a fixed order;
+the wrapper sums the tiles, so results do not depend on the order blocks run
+in (no atomics).  The TPU kernel's H % 8 and W % 128 limits and its
+row-slab choice do not apply.
 
 Three pairs of kernels, chosen by shape and dtype alone (`variant_for`):
 
@@ -47,8 +43,16 @@ Three pairs of kernels, chosen by shape and dtype alone (`variant_for`):
   last one what is left), so shared memory does not grow with mid; pass 2
   accumulates the projection over the chunks in registers.
   Channels_last in and out.
-- `nchw` (`csrc/mbconv.cu`): every other block (fp32, wider channel
-  counts), on an NCHW copy of the input.
+- `nchw` (`csrc/mbconv.cu`): every other block (fp32, wider or odd
+  channel counts, any Cin, mid and Cout), NCHW in and out.  Tiles of 256
+  pixels in whole row segments (bf16 64 x 4 on maps wider than 32, else
+  32 x 8; fp32 32 x 8) copied 16 bytes at a time, mid in chunks of 32 and
+  Cout in blocks of 32 or 64, an input wider than 64 channels streamed in
+  chunks of 32; bf16 GEMMs on `mma.sync`, fp32 on register-tiled FMAs;
+  pass 1 without an expand streams rows instead of tiles.  The library
+  plans the tiles (`mbconv_nchw_tiles` gives the partial sums' tile
+  count) and takes W not a multiple of 16 bytes or a misaligned start in
+  an element-wise instantiation.
 """
 
 from __future__ import annotations
@@ -65,8 +69,6 @@ LAUNCHES = {"mbconv_pass1": 0, "mbconv_pass2": 0,
             "mbconv_nhwc_pass1": 0, "mbconv_nhwc_pass2": 0,
             "mbconv_nhwc_expand_pass1": 0, "mbconv_nhwc_expand_pass2": 0}
 _SOURCE = "mbconv"
-_TILE_W = 32                       # csrc/mbconv.cu TW
-_SMEM_LIMIT = 227 * 1024           # dynamic shared memory a block may use
 _NHWC_SOURCE = "mbconv_nhwc"
 NHWC_TILE_W = 32                   # csrc/mbconv_nhwc.cu TW
 NHWC_MAX_C = 64                    # Cin (mid without an expand), Cout: multiples of 8 up to this
@@ -165,25 +167,20 @@ def mbconv_infer_nchw_plain(x: torch.Tensor, p: MBConvWeights, *,
 
 
 def _lib() -> ctypes.CDLL:
-    lib = build.load(_SOURCE)
+    return bind_nchw(build.load(_SOURCE))
+
+
+def bind_nchw(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """A library built from `csrc/mbconv.cu`, its C interface typed."""
     if lib.mbconv_pass1.restype is not ctypes.c_int:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.mbconv_pass1.argtypes = [vp] * 6 + [i] * 7 + [vp]
+        lib.mbconv_pass1.argtypes = [vp] * 6 + [i] * 6 + [vp]
         lib.mbconv_pass1.restype = i
-        lib.mbconv_pass2.argtypes = [vp] * 8 + [i] * 9 + [vp]
+        lib.mbconv_pass2.argtypes = [vp] * 8 + [i] * 8 + [vp]
         lib.mbconv_pass2.restype = i
-        lib.mbconv_smem_bytes.argtypes = [i] * 6
-        lib.mbconv_smem_bytes.restype = ctypes.c_longlong
+        lib.mbconv_nchw_tiles.argtypes = [i] * 4
+        lib.mbconv_nchw_tiles.restype = i
     return lib
-
-
-def _pick_tile_h(lib, cin, mid, cout, expand, bf16) -> int:
-    for th in (8, 4, 2, 1):
-        if lib.mbconv_smem_bytes(cin, mid, cout, th, int(expand),
-                                 int(bf16)) <= _SMEM_LIMIT:
-            return th
-    raise ValueError(f"MBConv block cin={cin} mid={mid} cout={cout} does not "
-                     "fit in shared memory")
 
 
 class _Launch(NamedTuple):
@@ -194,7 +191,6 @@ class _Launch(NamedTuple):
     bexp: Optional[torch.Tensor]
     wdw: torch.Tensor
     bdw: torch.Tensor
-    th: int
     bf16: bool
 
 
@@ -211,32 +207,28 @@ def _prepare(x: torch.Tensor, p: MBConvWeights) -> _Launch:
     if p.wdw.shape != (mid, 3, 3) or (expand and p.wexp.shape != (mid, cin)) \
             or (not expand and mid != cin):
         raise ValueError("MBConv weights do not match the input channels")
-    lib = _lib()
-    bf16 = x.dtype == torch.bfloat16
     dev = x.device
     return _Launch(
-        lib=lib, x=x.contiguous(),
+        lib=_lib(), x=x.contiguous(),
         wexp=p.wexp.to(dev, x.dtype).contiguous() if expand else None,
         bexp=p.bexp.to(dev, torch.float32).contiguous() if expand else None,
         wdw=p.wdw.to(dev, x.dtype).contiguous(),
         bdw=p.bdw.to(dev, torch.float32).contiguous(),
-        th=_pick_tile_h(lib, cin, mid, p.wproj.shape[1], expand, bf16),
-        bf16=bf16)
+        bf16=x.dtype == torch.bfloat16)
 
 
 def mbconv_pass1(x: torch.Tensor, p: MBConvWeights) -> torch.Tensor:
     """Pass 1 on the card: per-image channel sums [N, mid] (fp32).  The
-    kernel writes one partial sum per (image, tile, channel); the tiles are
-    summed here in a fixed order."""
+    kernel writes one partial sum per (image, tile, channel), the tiles as
+    the library plans them; they are summed here in a fixed order."""
     a = _prepare(x, p)
     n, cin, h, w = a.x.shape
     mid = p.wdw.shape[0]
-    tiles = -(-h // a.th) * -(-w // _TILE_W)
+    tiles = a.lib.mbconv_nchw_tiles(h, w, int(a.wexp is not None), int(a.bf16))
     partial = torch.empty((n, tiles, mid), dtype=torch.float32, device=x.device)
     rc = a.lib.mbconv_pass1(build.ptr(a.x), build.ptr(a.wexp), build.ptr(a.bexp),
                             build.ptr(a.wdw), build.ptr(a.bdw), build.ptr(partial),
-                            n, cin, mid, h, w, a.th, int(a.bf16),
-                            build.stream_ptr(x.device))
+                            n, cin, mid, h, w, int(a.bf16), build.stream_ptr(x.device))
     build.check(rc, "mbconv pass 1 launch")
     LAUNCHES["mbconv_pass1"] += 1
     return partial.sum(dim=1)
@@ -244,7 +236,7 @@ def mbconv_pass1(x: torch.Tensor, p: MBConvWeights) -> torch.Tensor:
 
 def mbconv_pass2(x: torch.Tensor, p: MBConvWeights, wpp: torch.Tensor,
                  residual: bool) -> torch.Tensor:
-    """Pass 2 on the card: [N, Cout, H, W] in x's dtype."""
+    """Pass 2 on the card: [N, Cout, H, W] in x's dtype, contiguous."""
     a = _prepare(x, p)
     n, cin, h, w = a.x.shape
     mid = p.wdw.shape[0]
@@ -259,8 +251,7 @@ def mbconv_pass2(x: torch.Tensor, p: MBConvWeights, wpp: torch.Tensor,
     rc = a.lib.mbconv_pass2(build.ptr(a.x), build.ptr(a.wexp), build.ptr(a.bexp),
                             build.ptr(a.wdw), build.ptr(a.bdw), build.ptr(wpp),
                             build.ptr(bproj), build.ptr(out), n, cin, mid, cout,
-                            h, w, a.th, int(residual), int(a.bf16),
-                            build.stream_ptr(x.device))
+                            h, w, int(residual), int(a.bf16), build.stream_ptr(x.device))
     build.check(rc, "mbconv pass 2 launch")
     LAUNCHES["mbconv_pass2"] += 1
     return out
@@ -386,10 +377,10 @@ def mbconv_nhwc_pass1(x: torch.Tensor, p: MBConvWeights) -> torch.Tensor:
     th = _tile_rows(_NHWC_SOURCE, 1, xh, c)
     partial = torch.empty((n, c, -(-h // th) * -(-w // NHWC_TILE_W)), dtype=torch.float32,
                           device=x.device)
+    ptrs, _keep = _weight_operands(x, p, False)
     rc = _nhwc_lib().mbconv_nhwc_pass1(
-        build.ptr(xh), build.ptr(p.wdw.to(x.device, x.dtype).contiguous()),
-        build.ptr(p.bdw.to(x.device, torch.float32).contiguous()), build.ptr(partial),
-        n, c, h, w, th, None, build.stream_ptr(x.device))
+        build.ptr(xh), *ptrs, build.ptr(partial), n, c, h, w, th, None,
+        build.stream_ptr(x.device))
     build.check(rc, "mbconv_nhwc pass 1 launch")
     LAUNCHES["mbconv_nhwc_pass1"] += 1
     return partial.sum(dim=2)
@@ -407,9 +398,9 @@ def mbconv_nhwc_pass2(x: torch.Tensor, p: MBConvWeights, wpp: torch.Tensor,
         raise ValueError(f"gated weights must be [N, mid, Cout], got {tuple(wpp.shape)}")
     wpp = wpp.to(x.device, x.dtype).contiguous()
     out = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
+    ptrs, _keep = _weight_operands(x, p, False)
     rc = _nhwc_lib().mbconv_nhwc_pass2(
-        build.ptr(xh), build.ptr(p.wdw.to(x.device, x.dtype).contiguous()),
-        build.ptr(p.bdw.to(x.device, torch.float32).contiguous()), build.ptr(wpp),
+        build.ptr(xh), *ptrs, build.ptr(wpp),
         build.ptr(p.bproj.to(x.device, torch.float32).contiguous()), build.ptr(out),
         n, c, cout, h, w, int(residual), _tile_rows(_NHWC_SOURCE, 2, xh, cout), None,
         build.stream_ptr(x.device))
@@ -418,16 +409,16 @@ def mbconv_nhwc_pass2(x: torch.Tensor, p: MBConvWeights, wpp: torch.Tensor,
     return out.permute(0, 3, 1, 2)
 
 
-def _expand_operands(x: torch.Tensor, p: MBConvWeights) -> list:
-    """The `nhwc_expand` kernels' weight pointers: wexp, bexp, wdw, bdw on
-    x's device, contiguous and 16-byte aligned (no copy for folded weights
-    already in place)."""
-    ts = [p.wexp.to(x.device, x.dtype).contiguous(),
-          p.bexp.to(x.device, torch.float32).contiguous(),
-          p.wdw.to(x.device, x.dtype).contiguous(),
-          p.bdw.to(x.device, torch.float32).contiguous()]
+def _weight_operands(x: torch.Tensor, p: MBConvWeights, expand: bool) -> list:
+    """The `nhwc` (wdw, bdw) or `nhwc_expand` (wexp, bexp, wdw, bdw) kernels'
+    weight pointers on x's device, contiguous and 16-byte aligned (no copy
+    for folded weights already in place)."""
+    ts = ([p.wexp.to(x.device, x.dtype).contiguous(),
+           p.bexp.to(x.device, torch.float32).contiguous()] if expand else []) + [
+        p.wdw.to(x.device, x.dtype).contiguous(),
+        p.bdw.to(x.device, torch.float32).contiguous()]
     if any(t.data_ptr() % 16 for t in ts):
-        raise ValueError("the nhwc_expand MBConv kernels need 16-byte aligned weights")
+        raise ValueError("the nhwc MBConv kernels need 16-byte aligned weights")
     return [build.ptr(t) for t in ts], ts
 
 
@@ -441,7 +432,7 @@ def mbconv_nhwc_expand_pass1(x: torch.Tensor, p: MBConvWeights) -> torch.Tensor:
     th = _tile_rows(_EXPAND_SOURCE, 1, xh, p.wproj.shape[1])
     partial = torch.empty((n, mid, -(-h // th) * -(-w // NHWC_TILE_W)),
                           dtype=torch.float32, device=x.device)
-    ptrs, _keep = _expand_operands(x, p)
+    ptrs, _keep = _weight_operands(x, p, True)
     rc = _expand_lib().mbconv_nhwc_expand_pass1(
         build.ptr(xh), *ptrs, build.ptr(partial), n, c, mid, h, w, th, None,
         build.stream_ptr(x.device))
@@ -463,7 +454,7 @@ def mbconv_nhwc_expand_pass2(x: torch.Tensor, p: MBConvWeights, wpp: torch.Tenso
         raise ValueError(f"gated weights must be [N, mid, Cout], got {tuple(wpp.shape)}")
     wpp = wpp.to(x.device, x.dtype).contiguous()
     out = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
-    ptrs, _keep = _expand_operands(x, p)
+    ptrs, _keep = _weight_operands(x, p, True)
     rc = _expand_lib().mbconv_nhwc_expand_pass2(
         build.ptr(xh), *ptrs, build.ptr(wpp),
         build.ptr(p.bproj.to(x.device, torch.float32).contiguous()), build.ptr(out),

@@ -32,7 +32,7 @@ import jax.numpy as jnp
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from enhanced_unet_tpu_torch.benchmarks import dw_variants, mbconv_instr, microtime
+from enhanced_unet_tpu_torch.benchmarks import dw_variants, mbconv_instr, mbconv_nchw, microtime
 from enhanced_unet_tpu_torch.benchmarks import mbconv_proto as port_proto
 from enhanced_unet_tpu_torch.ops.kernels import copy, depthwise
 
@@ -228,8 +228,8 @@ def test_make_params_layout_and_seed():
     assert w.wexp is None and w.bexp is None
 
 
-@pytest.mark.parametrize("module", [dw_variants, mbconv_instr, port_proto],
-                         ids=["dw_variants", "mbconv_instr", "mbconv_proto"])
+@pytest.mark.parametrize("module", [dw_variants, mbconv_instr, port_proto, mbconv_nchw],
+                         ids=["dw_variants", "mbconv_instr", "mbconv_proto", "mbconv_nchw"])
 def test_bench_main_raises_without_a_card(monkeypatch, module):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -119,6 +119,96 @@ def test_mbconv_kernel_matches_plain(cuda, dtype, cin, ratio, cout, residual):
     assert _rel(got, want) <= _tol(dtype)
 
 
+# (dtype, n, cin, mid, cout, h, w, residual, offset): the `nchw` kernels'
+# instantiations (bf16 and fp32, with and without an expand, the 16-byte
+# path and, where W is not a multiple of 16 bytes or x starts `offset`
+# elements into its storage, the element-wise one), N 1 and 6, ragged maps,
+# channel counts that are not multiples of 8, a short last mid chunk, Cout
+# over one 64-channel block, an input streamed in 32-channel chunks (Cin >
+# 64), stage 3 (128 -> 768 -> 128) and stage 6 (512 -> 3072 -> 512, and its
+# first block 304 -> 1824 -> 512), which the kernels once refused
+_NCHW_CASES = [
+    (torch.bfloat16, 16, 24, 24, 24, 64, 64, True, 0),     # B2's block, 16-byte path
+    (torch.bfloat16, 1, 24, 24, 24, 37, 45, True, 0),      # element-wise (W 45)
+    (torch.bfloat16, 6, 48, 48, 24, 8, 8, False, 0),
+    (torch.bfloat16, 1, 20, 120, 36, 45, 70, False, 0),    # W 70: element-wise
+    (torch.bfloat16, 6, 5, 30, 7, 37, 45, False, 0),
+    (torch.bfloat16, 1, 40, 240, 40, 32, 128, True, 1),    # a start one element in
+    (torch.bfloat16, 6, 128, 768, 128, 32, 32, True, 0),   # stage 3
+    (torch.bfloat16, 1, 112, 672, 112, 45, 70, True, 0),
+    (torch.bfloat16, 6, 512, 3072, 512, 16, 16, True, 0),  # stage 6
+    (torch.bfloat16, 1, 304, 1824, 512, 8, 8, False, 0),
+    (torch.bfloat16, 1, 96, 96, 72, 37, 64, False, 0),     # no expand, streamed
+    (torch.float32, 6, 48, 48, 24, 64, 64, False, 0),      # stage 0, 16-byte path
+    (torch.float32, 1, 24, 24, 24, 37, 45, True, 0),
+    (torch.float32, 6, 40, 240, 40, 32, 32, True, 0),
+    (torch.float32, 1, 20, 120, 36, 45, 70, False, 0),
+    (torch.float32, 6, 5, 30, 7, 8, 8, False, 0),
+    (torch.float32, 1, 24, 144, 24, 40, 64, True, 3),      # a start 3 elements in
+    (torch.float32, 1, 128, 768, 128, 16, 16, True, 0),
+    (torch.float32, 1, 80, 80, 80, 37, 45, True, 0),       # no expand, streamed
+]
+
+
+@pytest.mark.parametrize("dtype,n,cin,mid,cout,h,w,residual,offset", _NCHW_CASES)
+def test_mbconv_nchw_kernels_match_plain(cuda, dtype, n, cin, mid, cout, h, w, residual,
+                                         offset):
+    from enhanced_unet_tpu_torch.benchmarks import mbconv_proto
+    from enhanced_unet_tpu_torch.ops.kernels import mbconv
+
+    g = torch.Generator(device=cuda).manual_seed(9)
+    expand = mid != cin
+    p = mbconv_proto.proto_weights(mbconv_proto.make_params(g, cin, mid, cout, 4), expand)
+    p = p._replace(**{k: getattr(p, k).to(dtype) for k in ("wexp", "wdw") if getattr(p, k)
+                      is not None})
+    flat = torch.randn(n * cin * h * w + offset, generator=g, device=cuda).to(dtype)
+    x = flat[offset:].view(n, cin, h, w)
+    with torch.no_grad():
+        before = dict(mbconv.LAUNCHES)
+        sums = mbconv.mbconv_pass1(x, p)
+        got = mbconv.mbconv_pass2(x, p, mbconv.se_gated_projection(sums, p, h * w, dtype),
+                                  residual)
+        torch.cuda.synchronize()
+        moved = {k: v - before[k] for k, v in mbconv.LAUNCHES.items() if v != before[k]}
+        want_sums = mbconv.mbconv_pass1_plain(x, p)
+        want = mbconv.mbconv_infer_nchw_plain(x, p, residual=residual)
+        wpp = mbconv.se_gated_projection(want_sums, p, h * w, dtype)
+        got2 = mbconv.mbconv_pass2(x, p, wpp, residual)
+        want2 = mbconv.mbconv_pass2_plain(x, p, wpp, residual)
+        # the entry takes the same kernels where the shape routes there
+        routed = mbconv.variant_for(x, p) == "nchw"
+        entry = mbconv.mbconv_infer_nchw(x, p, residual=residual) if routed else got
+    assert moved == {"mbconv_pass1": 1, "mbconv_pass2": 1}
+    assert (sums - want_sums).abs().max() <= 1e-3 * want_sums.abs().max()
+    assert got.dtype == dtype and got.shape == (n, cout, h, w) and got.is_contiguous()
+    assert _rel(got, want) <= _tol(dtype)
+    assert _rel(got2, want2) <= _tol(dtype)
+    assert torch.equal(entry, got)
+
+
+def test_mbconv_nchw_entry_points_reject_what_they_do_not_take(cuda):
+    from enhanced_unet_tpu_torch.benchmarks import mbconv_proto
+    from enhanced_unet_tpu_torch.ops.kernels import mbconv
+
+    g = torch.Generator(device=cuda).manual_seed(10)
+    p = mbconv_proto.proto_weights(mbconv_proto.make_params(g, 24, 72, 24, 4), True)
+    x = torch.zeros(1, 24, 8, 8, device=cuda, dtype=torch.bfloat16)
+    wpp = torch.zeros(1, 72, 24, device=cuda, dtype=torch.bfloat16)
+    before = dict(mbconv.LAUNCHES)
+    with pytest.raises(TypeError):
+        mbconv.mbconv_pass1(x.half(), p)
+    with pytest.raises(ValueError, match="device"):
+        mbconv.mbconv_pass2(x.cpu(), p, wpp, True)
+    with pytest.raises(ValueError, match="match"):
+        mbconv.mbconv_pass1(torch.zeros(1, 16, 8, 8, device=cuda, dtype=torch.bfloat16), p)
+    with pytest.raises(ValueError, match="residual"):
+        mbconv.mbconv_pass2(x, p._replace(wproj=p.wproj[:, :16], bproj=p.bproj[:16]),
+                            wpp[:, :, :16], True)
+    with pytest.raises(ValueError, match="gated"):
+        mbconv.mbconv_pass2(x, p, wpp[:, :64], True)
+    assert mbconv.LAUNCHES == before
+
+
 # (n, C = mid, Cout, h, w, residual): every C the nhwc kernels take at the
 # serving path's (24, 48) and at the limits (8, 64), Cout 8 and 24, 256^2,
 # a ragged 37 x 45 and one 8 x 8 tile short of both tile sides
@@ -274,6 +364,39 @@ def test_mbconv_nhwc_expand_entry_points_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="gated weights"):
         mbconv.mbconv_nhwc_expand_pass2(x, p, wpp[:, :64], True)
     assert mbconv.LAUNCHES == before
+
+
+@pytest.mark.parametrize("variant,weight", [("nhwc", "wdw"), ("nhwc", "bdw"),
+                                            ("nhwc_expand", "wexp"), ("nhwc_expand", "bexp")])
+def test_mbconv_nhwc_wrappers_need_aligned_weights(cuda, variant, weight):
+    # the `nhwc` kernels read their weights 16 bytes at a time: a weight
+    # that starts one element into its storage is refused, not launched
+    from enhanced_unet_tpu_torch.benchmarks import mbconv_proto
+    from enhanced_unet_tpu_torch.ops.kernels import mbconv
+
+    expand = variant == "nhwc_expand"
+    g = torch.Generator(device=cuda).manual_seed(11)
+    p = mbconv_proto.proto_weights(mbconv_proto.make_params(g, 24, 144 if expand else 24, 24, 4),
+                                   expand)
+    p = p._replace(**{k: getattr(p, k).bfloat16() for k in ("wexp", "wdw")
+                      if getattr(p, k) is not None})
+    x = torch.zeros(1, 24, 8, 8, device=cuda, dtype=torch.bfloat16)
+    w = getattr(p, weight)
+    shifted = torch.empty(w.numel() + 1, device=cuda, dtype=w.dtype)[1:].view(w.shape)
+    shifted.copy_(w)
+    assert mbconv.variant_for(x, p) == variant and shifted.data_ptr() % 16
+    pass1 = mbconv.mbconv_nhwc_expand_pass1 if expand else mbconv.mbconv_nhwc_pass1
+    pass2 = mbconv.mbconv_nhwc_expand_pass2 if expand else mbconv.mbconv_nhwc_pass2
+    wpp = torch.zeros(1, p.wdw.shape[0], 24, device=cuda, dtype=torch.bfloat16)
+    bad = p._replace(**{weight: shifted})
+    before = dict(mbconv.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        pass1(x, bad)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        pass2(x, bad, wpp, True)
+    assert mbconv.LAUNCHES == before
+    with torch.no_grad():                  # the same values, aligned, launch
+        assert torch.equal(pass1(x, p), pass1(x, bad._replace(**{weight: w})))
 
 
 def test_kernels_reject_what_they_do_not_take(cuda):
