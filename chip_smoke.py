@@ -68,8 +68,28 @@ Phases (any failure exits non-zero):
     the SE gate between them) timed beside the stock path's eval-mode
     `MBConvBlock` on the same weights (what serving runs); and the sums
     over one request (4 blocks of each B5 shape and 3 of each B4 shape);
+ 4e. tiled serving at full width: the same model served by an `Evaluator`
+    with `tiled=True` (tile 512, overlap 64, TTA, the whole grid in one
+    chunk) on one seeded 2048x2048 micrograph, three requests, every count
+    set to 0 before each: a [2048,2048] uint8 mask with at least two
+    classes; the 25 tiles in three forwards (the 75-tile trio, 25 at 384^2,
+    25 at 640^2); K2's wgmma/small-Cin and K1's `nhwc` counts move, no
+    other; no pack or fold after the first request; wall ms, CUDA-event
+    span, peak memory, launches per request, the shapes K1 and K2 were
+    called at, a profile; the host-stitched path (chunks of 8) and
+    `tile_batch=8` against the whole-grid mask (at least 99.99% of pixels
+    equal, the share printed); K2 at the trio's three fusion-head shapes
+    (`[75,512,512,Cin]`, up to 5.0e9 elements) against its plain version
+    (2e-2 of max |value|) and timed;
+ 4g. `evaluate` on the card: one loader-format batch of two 512^2 blob
+    micrographs with their disks as ground-truth instances; every metric
+    key present and finite, the predicted live/dead counts those of
+    `semantic_to_instances` on the masks the card returned, the native host
+    ops built and called; the host's ms per image;
  5. cross-check: one 256x256 image, one view, bf16 on the card against the
-    same weights in fp32 on the CPU (plain PyTorch path);
+    same weights in fp32 on the CPU (plain PyTorch path); and 4f, the tiled
+    path on one 256x448 image (tile 256, overlap 64: two tiles, one view),
+    its probabilities within 5e-2 of max |value| of the CPU's;
  6. the training step (`train.trainer`):
     6a. the flagship at full width (bf16 compute, fp32 parameters,
         `fusion_stride=1`, the preset's dropout and stochastic depth) in
@@ -92,7 +112,8 @@ Phases (any failure exits non-zero):
         at batch 2 makes fp32 gradients noise-limited) and in fp64
         (gradient tree within 1e-4);
  7. a `{"kernels": [...]}` line, each entry's launches counted in the run
-    whose time and shape it reports, the card line, and the final JSON line.
+    whose time and shape it reports (the serving kernels' also per tiled
+    request, `tiled_launches`), the card line, and the final JSON line.
 
 It needs no network and builds into `build/kernels/`.
 """
@@ -123,6 +144,7 @@ PEAK_OPS = {"bf16": 989e12, "fp32": 67e12}   # dense tensor-core bf16; fp32 CUDA
 K2_ITERS = 20                      # calls per K2 timing
 K1_ITERS = 20                      # calls per K1 timing
 TRAIN_STEPS = 5                    # timed full-width train steps, after 1 warm step
+TILED_SIZE, TILE, TILE_OVERLAP = 2048, 512, 64   # phase 4e: a full-resolution micrograph
 TRAIN_SIZE, TRAIN_PAD = 512, 640   # micrographs, padded to the trainer's max_size
 STEPS_PER_EPOCH = 10               # the LR table's epoch length
 TINY = ("efficientnet-tiny", "efficientnet-tiny")
@@ -182,31 +204,66 @@ def serving_model(**kwargs):
     return model
 
 
+def blob_micrograph(rng, size: int):
+    """One seeded training micrograph: live (1) and dead (2) disks on a
+    textured background.  Returns the grey image [size, size] in [0, 1],
+    the int64 mask, and the disks as (pixels, class), in drawing order."""
+    import numpy as np
+
+    yy, xx = np.mgrid[:size, :size]
+    img = 0.65 + 0.05 * np.sin(yy / 9.0) + rng.normal(0, 0.02, (size, size))
+    mask = np.zeros((size, size), np.int64)
+    disks = []
+    for _ in range(max(5, size * size // 6000)):
+        cy, cx = rng.integers(8, size - 8, 2)
+        r, cls = rng.integers(4, 9) * max(1, size // 128), int(rng.integers(1, 3))
+        disk = (yy - cy) ** 2 + (xx - cx) ** 2 <= r * r
+        img[disk] = 0.5 if cls == 1 else 0.35
+        mask[disk] = cls
+        disks.append((disk, cls))
+    return np.clip(img, 0, 1), mask, disks
+
+
 def blob_batch(n: int, size: int, pad_to: int, seed: int):
-    """Seeded training micrographs with their masks: live (1) and dead (2)
-    disks on a textured background, `size`^2, zero-padded to `pad_to`^2
-    with `valid` true on the image.  Returns float32 images [n, pad_to,
-    pad_to, 3] in [0, 1], int64 masks and a bool valid mask."""
+    """Seeded training micrographs with their masks (`blob_micrograph`),
+    `size`^2, zero-padded to `pad_to`^2 with `valid` true on the image.
+    Returns float32 images [n, pad_to, pad_to, 3] in [0, 1], int64 masks
+    and a bool valid mask."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     images = np.zeros((n, pad_to, pad_to, 3), np.float32)
     masks = np.zeros((n, pad_to, pad_to), np.int64)
     valid = np.zeros((n, pad_to, pad_to), bool)
-    yy, xx = np.mgrid[:size, :size]
     for i in range(n):
-        img = 0.65 + 0.05 * np.sin(yy / 9.0) + rng.normal(0, 0.02, (size, size))
-        mask = np.zeros((size, size), np.int64)
-        for _ in range(max(5, size * size // 6000)):
-            cy, cx = rng.integers(8, size - 8, 2)
-            r, cls = rng.integers(4, 9) * max(1, size // 128), int(rng.integers(1, 3))
-            disk = (yy - cy) ** 2 + (xx - cx) ** 2 <= r * r
-            img[disk] = 0.5 if cls == 1 else 0.35
-            mask[disk] = cls
-        images[i, :size, :size] = np.clip(img, 0, 1)[..., None]
+        img, mask, _ = blob_micrograph(rng, size)
+        images[i, :size, :size] = img[..., None]
         masks[i, :size, :size] = mask
         valid[i, :size, :size] = True
     return images, masks, valid
+
+
+def eval_batch(n: int, size: int, seed: int) -> dict:
+    """One batch in the loader's format (`{"batch_items": [...], "n_real":
+    n}`) of `n` seeded blob micrographs, `size`^2: each item's image
+    [size, size, 3] in [0, 1], semantic mask, and one ground-truth instance
+    per disk (its pixels no later disk covered; label 0 live, 1 dead)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    items = []
+    for i in range(n):
+        img, mask, disks = blob_micrograph(rng, size)
+        owner = np.full((size, size), -1)
+        for k, (disk, _) in enumerate(disks):
+            owner[disk] = k
+        inst = [((owner == k).astype(np.uint8), cls - 1) for k, (_, cls) in enumerate(disks)]
+        inst = [(m, label) for m, label in inst if m.any()]
+        items.append({"image": np.repeat(img[..., None], 3, -1).astype(np.float32),
+                      "semantic_mask": mask, "instance_masks": [m for m, _ in inst],
+                      "instance_labels": [label for _, label in inst],
+                      "image_id": f"blob_{seed}_{i}"})
+    return {"batch_items": items, "n_real": n}
 
 
 TRAIN_GROUPS = (("batch norm", ("batch_norm", "bn_fw", "bn_bw")),
@@ -352,6 +409,7 @@ def tree_rel_l2(ours: dict, ref: dict) -> float:
 def main(argv=None) -> int:
     import argparse
 
+    import numpy as np
     import torch
 
     parser = argparse.ArgumentParser(description="Drive the port on one CUDA card.")
@@ -989,24 +1047,241 @@ def main(argv=None) -> int:
           f"{k1x_req['nchw_ms']:.4f}, library block {k1x_req['library_block_ms']:.4f}, bound "
           f"{k1x_req['bound_ms']:.4f}; {time.perf_counter() - t0:.1f} s")
 
+    # ---- 4e. tiled serving of a full-resolution micrograph ---------------
+    from enhanced_unet_tpu_torch import native
+    from enhanced_unet_tpu_torch.metrics.instance import calculate_instance_metrics
+    from enhanced_unet_tpu_torch.ops.preprocess import eval_preprocess
+    from enhanced_unet_tpu_torch.ops.thresholding import convert_probs_to_mask
+    from enhanced_unet_tpu_torch.ops.tiling import tile_grid
+    from enhanced_unet_tpu_torch.postprocess import semantic_to_instances
+    from enhanced_unet_tpu_torch.train.evaluator import _METRIC_KEYS
+
+    del evaluator
+    torch.cuda.empty_cache()
+    tiled = Evaluator(model, "enhanced_unet", tiled=True, tile=TILE, overlap=TILE_OVERLAP)
+    check(tiled.enable_tta and tiled.tile_batch is None,
+          "tiled serving with TTA, the whole grid in one chunk")
+    micrograph = synthetic_images(1, TILED_SIZE, 21)[0]
+    n_tiles = len(tile_grid(TILED_SIZE, TILED_SIZE, TILE, TILE_OVERLAP)[2])
+    forwards = []
+    apply = tiled._apply
+
+    def counting_apply(x):
+        forwards[-1].append(tuple(x.shape))
+        return apply(x)
+
+    tiled._apply = counting_apply
+    tiled_k2, tiled_k1 = {}, {}
+
+    def recording_tiled_k2(x, packed, relu=True):
+        key = tuple(x.shape) + (packed.cout,)
+        tiled_k2[key] = tiled_k2.get(key, 0) + 1
+        return packed_entry(x, packed, relu)
+
+    def recording_tiled_k1(x, p, residual):
+        key = (tuple(x.shape), p.wproj.shape[1])
+        tiled_k1[key] = tiled_k1.get(key, 0) + 1
+        return k1_entry(x, p, residual=residual)
+
+    blocks.pack_conv3x3 = counting_pack
+    encoders.fold_mbconv_weights = counting_fold
+    packs.clear()
+    folds.clear()
+    tiled_walls, tiled_spans, tiled_launch_runs = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(3):
+        blocks.fused_conv3x3_bn_relu_packed = recording_tiled_k2 if i == 0 else packed_entry
+        encoders.mbconv_infer_nchw = recording_tiled_k1 if i == 0 else k1_entry
+        packs.append(0)
+        folds.append(0)
+        forwards.append([])
+        reset(counters)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        tiled_mask = tiled.predict_semantic_mask(micrograph)
+        end.record()
+        torch.cuda.synchronize()
+        tiled_walls.append(1e3 * (time.perf_counter() - t0))
+        tiled_spans.append(start.elapsed_time(end))
+        tiled_launch_runs.append({k: v for c in counters for k, v in c.items()})
+        counts = [int((tiled_mask == c).sum()) for c in range(3)]
+        print(f"tiled request {i + 1}: {TILED_SIZE}^2, tile {TILE}, overlap {TILE_OVERLAP}, "
+              f"TTA: wall {tiled_walls[-1]:.1f} ms, CUDA-event span {tiled_spans[-1]:.1f} ms, "
+              f"forwards {forwards[-1]}, classes {counts}")
+        check(tiled_mask.shape == (TILED_SIZE, TILED_SIZE) and tiled_mask.dtype == np.uint8,
+              f"tiled mask {tiled_mask.shape} {tiled_mask.dtype}")
+        check(sum(counts) == tiled_mask.size, "tiled mask values outside {0, 1, 2}")
+        check(sum(1 for c in counts if c) >= 2, f"the tiled cascade decided only {counts}")
+    tiled_peak = torch.cuda.max_memory_allocated()
+    blocks.pack_conv3x3 = pack
+    encoders.mbconv_infer_nchw, encoders.fold_mbconv_weights = k1_entry, fold
+    blocks.fused_conv3x3_bn_relu_packed = packed_entry
+    tiled._apply = apply
+    tiled_launches = tiled_launch_runs[-1]
+    print(f"tiled serving: {n_tiles} tiles a request, forwards {forwards[-1]}, peak memory "
+          f"{tiled_peak} bytes, launches per request {json.dumps(tiled_launches)}, K2 packs "
+          f"per request {packs}, K1 folds per request {folds}; K2 shapes "
+          f"{sorted(tiled_k2.items())}; K1 shapes {sorted(tiled_k1.items())}")
+    check(all(run == tiled_launches for run in tiled_launch_runs),
+          "every tiled request launches the same kernels")
+    check(forwards[-1] == [(3 * n_tiles, TILE, TILE, 3),
+                           (n_tiles, TILE * 3 // 4, TILE * 3 // 4, 3),
+                           (n_tiles, TILE * 5 // 4, TILE * 5 // 4, 3)],
+          f"the whole grid in one chunk: the trio and two scales ({forwards[-1]})")
+    for name in serving:
+        check(tiled_launches[name] > 0, f"the tiled path launched {name}")
+    tiled_off = {k: v for k, v in tiled_launches.items() if k not in serving}
+    check(not any(tiled_off.values()), f"the tiled path launched {tiled_off}")
+    check(sum(tiled_k2.values()) == tiled_launches["conv3x3_bn_act_wgmma"]
+          + tiled_launches["conv3x3_bn_act_smallc"], "the recorded K2 calls are a request's")
+    check(not any(packs[1:]) and not any(folds[1:]),
+          f"no K2 pack or K1 fold after the first tiled request: {packs}, {folds}")
+    tiled_groups = profile_run(lambda: tiled.predict_semantic_mask(micrograph),
+                               min(tiled_walls[1:]), f"one tiled {TILED_SIZE}^2 request")
+    # the host-stitched path (chunks of 8 tiles, probabilities downloaded)
+    # and the whole path in chunks of 8 tiles, against the whole grid
+    t0 = time.perf_counter()
+    host_probs = tiled.predict_probs_tiled(micrograph)
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    host_mask = convert_probs_to_mask(torch.from_numpy(host_probs)).numpy()
+    host_share = float(np.mean(host_mask == tiled_mask))
+    tiled.tile_batch = 8
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    chunked_mask = tiled.predict_semantic_mask(micrograph)
+    chunked_ms = 1e3 * (time.perf_counter() - t0)
+    chunked_peak = torch.cuda.max_memory_allocated()
+    chunked_share = float(np.mean(chunked_mask == tiled_mask))
+    print(f"tiled: host-stitched (chunks of 8) equals the device-stitched mask on "
+          f"{host_share:.6f} of pixels ({int((host_mask != tiled_mask).sum())} differ; "
+          f"{host_ms:.1f} ms); tile_batch=8 on {chunked_share:.6f} "
+          f"({int((chunked_mask != tiled_mask).sum())} differ; {chunked_ms:.1f} ms, peak "
+          f"memory {chunked_peak} bytes)")
+    check(host_share >= 0.9999, "host-stitched within 99.99% of the device-stitched mask")
+    check(chunked_share >= 0.9999, "tile_batch=8 within 99.99% of the whole grid")
+    del tiled, host_probs
+    # K2 at the fusion head's shapes in the tiled trio: its tensors hold
+    # 2^31 elements and more (the kernels' offsets are 64-bit); each checked
+    # against its plain version, five images at a time, and timed
+    n_trio = 3 * n_tiles
+    for cin, cout in ((6, 256), (256, 128), (128, 64)):
+        x = torch.randn(n_trio, TILE, TILE, cin, generator=g, device=dev, dtype=torch.bfloat16)
+        wt = torch.randn(3, 3, cin, cout, generator=g, device=dev) / (9 * cin) ** 0.5
+        sc = torch.rand(cout, generator=g, device=dev) + 0.5
+        sh = torch.randn(cout, generator=g, device=dev) * 0.1
+        packed = conv_fused.pack_conv3x3(wt, sc, sh, torch.bfloat16, dev)
+        with torch.no_grad():
+            got = conv_fused.fused_conv3x3_bn_relu_packed(x, packed, True)
+            rel = 0.0
+            for i in range(0, n_trio, 5):
+                want = conv_fused.fused_conv3x3_bn_relu_plain(x[i:i + 5], wt, sc, sh, True)
+                rel = max(rel, ((got[i:i + 5].float() - want.float()).abs().max()
+                                / want.float().abs().max()).item())
+            del got, want
+            ms = device_ms(lambda: conv_fused.fused_conv3x3_bn_relu_packed(x, packed, True), 5)
+        b, kind = conv_bound(n_trio, TILE, TILE, cin, cout)
+        print(f"K2 at the tiled trio's [{n_trio},{TILE},{TILE},{cin}]->{cout} "
+              f"({x.numel()} input, {n_trio * TILE * TILE * cout} output elements; "
+              f"{packed.variant}): rel err {rel:.3e} (tol 2e-2), kernel {ms:.4f} ms, bound "
+              f"{b:.4f} ms ({kind})")
+        check(rel <= 2e-2, f"K2 at the tiled trio's {cin}->{cout} against its plain version")
+        del x, packed
+    torch.cuda.empty_cache()
+
+    # ---- 4g. evaluate on the card: the reference's metric dict -----------
+    batch = eval_batch(2, 512, 4)
+    ev = Evaluator(model, "enhanced_unet", verbose=False)
+    served = []
+    predict = ev.predict_semantic_masks
+
+    def recording_predict(imgs):
+        out = predict(imgs)
+        served.append(out)
+        return out
+
+    calls = {"rle_counts": 0, "pairwise_iou": 0}
+    native_fns = {name: getattr(native, name) for name in calls}
+
+    def counted(name):
+        def run(*args):
+            calls[name] += 1
+            return native_fns[name](*args)
+        return run
+
+    ev.predict_semantic_masks = recording_predict
+    for name in calls:
+        setattr(native, name, counted(name))
+    try:
+        t0 = time.perf_counter()
+        scores = ev.evaluate([batch])
+        eval_wall = 1e3 * (time.perf_counter() - t0)
+    finally:
+        for name, fn in native_fns.items():
+            setattr(native, name, fn)
+    check(len(served) == 1 and served[0].shape == (2, 512, 512),
+          "evaluate served the two images in one batch")
+    labels = []
+    host_t0 = time.perf_counter()
+    for m, item in zip(served[0], batch["batch_items"]):
+        masks_i, labels_i, scores_i = semantic_to_instances(m)
+        labels.append(labels_i)
+        calculate_instance_metrics(masks_i, labels_i, scores_i, item["instance_masks"],
+                                   item["instance_labels"], native=True)
+        for mm in masks_i + item["instance_masks"]:
+            native.rle_counts(mm)
+    host_per_image = 1e3 * (time.perf_counter() - host_t0) / len(served[0])
+    print(f"evaluate on the card: {json.dumps(scores)}; wall {eval_wall:.1f} ms for 2 x "
+          f"512^2; native calls {calls}; host (instances, instance metrics, RLE) "
+          f"{host_per_image:.1f} ms per image")
+    check(set(scores) == set(_METRIC_KEYS), "every metric key present")
+    check(all(math.isfinite(v) for v in scores.values()), "every metric finite")
+    for label, key in ((0, "pred_live_count"), (1, "pred_dead_count")):
+        want = sum(sum(1 for x in c if x == label) for c in labels) / len(labels)
+        check(scores[key] == want, f"{key} {scores[key]} is semantic_to_instances' {want}")
+    check(native.load() is not None and calls["rle_counts"] > 0,
+          "evaluate on the card used the native host ops")
+    del ev
+
     # ---- 5. full-width cross-check against the fp32 CPU plain path ------
+    # and 4f, the tiled path: one 256 x 448 image, tile 256, overlap 64
+    # (two tiles), one view, its tiles' probabilities from the same enhanced
+    # input
     x = torch.from_numpy(synthetic_images(1, 256, 7)) - 0.5
+    wide = synthetic_images(1, 448, 8)[0, :256]
+    card_tiled = Evaluator(model, "enhanced_unet", enable_tta=False, tiled=True, tile=256,
+                           overlap=64)
     with torch.no_grad():
         got, _ = model(x.to(dev))
-        del model, evaluator
+        enhanced = eval_preprocess(torch.from_numpy(wide).to(dev) * 255.0) / 255.0
+        got_tiled = card_tiled.tiled_probs(enhanced[None])[0].cpu()
+        del model, card_tiled
         torch.cuda.empty_cache()
         ref_model = serving_model(dtype=torch.float32, device="cpu")
         t0 = time.perf_counter()
         want, _ = ref_model(x)
+        cpu_ms = 1e3 * (time.perf_counter() - t0)
+        cpu_tiled = Evaluator(ref_model, "enhanced_unet", enable_tta=False, device="cpu",
+                              tiled=True, tile=256, overlap=64)
+        want_tiled = cpu_tiled.tiled_probs(enhanced[None].cpu())[0]
     err = (got.float().cpu() - want).abs().max().item()
     scale = want.abs().max().item()
     # bf16 activations through ~90 layers against fp32: about 2^-8 relative
     # rounding per layer, partly cancelling; 5e-2 of max |logit| allows it
     print(f"cross-check 256^2: bf16 card vs fp32 cpu max_abs_err {err:.4e}, "
           f"max |logit| {scale:.4e}, ratio {err / scale:.4e} (tol 5e-2); "
-          f"cpu forward {time.perf_counter() - t0:.1f} s")
+          f"cpu forward {cpu_ms / 1e3:.1f} s")
     check(torch.isfinite(got).all().item(), "finite logits")
     check(err <= 5e-2 * scale, "bf16 card path within 5e-2 of max |logit|")
+    tiled_err = (got_tiled - want_tiled).abs().max().item()
+    tiled_scale = want_tiled.abs().max().item()
+    print(f"tiled cross-check 256 x 448 (tile 256, overlap 64, "
+          f"{len(tile_grid(256, 448, 256, 64)[2])} tiles, one view): bf16 card vs fp32 cpu "
+          f"probabilities max_abs_err {tiled_err:.4e}, max {tiled_scale:.4e} (tol 5e-2 of it)")
+    check(tuple(got_tiled.shape) == (256, 448, 3) and torch.isfinite(got_tiled).all().item(),
+          "finite tiled probabilities")
+    check(tiled_err <= 5e-2 * tiled_scale, "tiled bf16 card path within 5e-2 of the cpu")
 
     del ref_model
 
@@ -1185,6 +1460,8 @@ def main(argv=None) -> int:
                         "wall_ms": r["wall_ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
+                        **({"tiled_launches": tiled_launches[name]} if name in serving
+                           else {}),
                         **{k: r[k] for k in ("library_conv_ms", "library_block_ms", "nchw_ms",
                                              "yardstick_ms", "copy_ratio", "bf16_weights_ms")
                            if k in r},

@@ -6,4 +6,5 @@ layouts (NHWC images, `model(x_nhwc) -> (logits_nhwc_f32, aux)`), so the
 two packages can be held against each other on the same inputs.
 """
 
-__all__ = ["config", "device", "models", "ops", "train", "convert"]
+__all__ = ["config", "device", "models", "ops", "train", "convert", "data", "metrics",
+           "postprocess", "native"]

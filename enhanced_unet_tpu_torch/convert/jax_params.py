@@ -16,11 +16,12 @@ the parameters' tree and go through the same key map (`resume_from_jax`).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from enhanced_unet_tpu_torch.device import resolve_device
 from enhanced_unet_tpu_torch.models.encoders import expand_ratios
 from enhanced_unet_tpu_torch.train.trainer import AdamWState, TrainState
 
@@ -198,9 +199,12 @@ def optimizer_state_from_jax(opt_state: Any,
                              variants: Tuple[str, str] = ("efficientnet-b5",
                                                           "efficientnet-b4"),
                              mu_dtype: torch.dtype = torch.float32,
-                             device="cpu") -> AdamWState:
+                             device: Optional[Union[str, torch.device]] = None,
+                             ) -> AdamWState:
     """An optax `chain(clip_by_global_norm, adamw)` state -> the port's
-    `AdamWState` (mu in `mu_dtype`, nu fp32) on `device`."""
+    `AdamWState` (mu in `mu_dtype`, nu fp32) on `device` (None: the CUDA
+    card, raising without one)."""
+    device = resolve_device(device)
     adam = _adam_state(opt_state)
     if adam is None:
         raise ValueError("no Adam state (count, mu, nu) in the optimizer state")

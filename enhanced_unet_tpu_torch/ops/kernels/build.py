@@ -102,6 +102,18 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+MAX_GRID_Z = 65535          # CUDA's limit on gridDim.z, where K1 puts the batch
+
+
+def check_grid(n: int, h: int, w: int, what: str) -> None:
+    """Raise for a batch the kernels cannot index: K1 launches the batch as
+    gridDim.z and K2 counts tiles, the batch's pixels at most, in `int`
+    (element offsets are 64-bit)."""
+    if n > MAX_GRID_Z or n * h * w >= 2 ** 31:
+        raise ValueError(f"{what}: a batch of {n} x {h} x {w} is beyond the kernels' "
+                         f"grid (at most {MAX_GRID_Z} images and 2^31 - 1 pixels)")
+
+
 def check(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}")

@@ -209,6 +209,7 @@ def fused_conv3x3_bn_relu_packed(x: torch.Tensor, packed: PackedConv3x3,
         raise ValueError(f"bad shapes x {tuple(x.shape)} for Cin {packed.cin}")
     if not x.is_contiguous():
         raise ValueError("conv3x3_bn_act takes a contiguous NHWC input")
+    build.check_grid(x.shape[0], x.shape[1], x.shape[2], "conv3x3_bn_act")
     if packed.variant == "wgmma" and x.data_ptr() % 16:
         raise ValueError("the wgmma kernel needs a 16-byte aligned input")
     return launch(packed.variant, x, packed, relu)

@@ -201,6 +201,7 @@ def _prepare(x: torch.Tensor, p: MBConvWeights) -> _Launch:
         raise TypeError(f"mbconv takes bf16 or fp32, got {x.dtype}")
     if x.ndim != 4:
         raise ValueError(f"expected NCHW input, got shape {tuple(x.shape)}")
+    build.check_grid(x.shape[0], x.shape[2], x.shape[3], "mbconv")
     cin = x.shape[1]
     mid = p.wdw.shape[0]
     expand = p.wexp is not None
@@ -353,6 +354,7 @@ def _nhwc_prepare(x: torch.Tensor, p: MBConvWeights,
         raise TypeError(f"the {variant} MBConv kernels take bf16, got {x.dtype}")
     if x.ndim != 4:
         raise ValueError(f"expected NCHW input, got shape {tuple(x.shape)}")
+    build.check_grid(x.shape[0], x.shape[2], x.shape[3], f"mbconv {variant}")
     if variant_for(x, p) != variant:
         raise ValueError(f"the {variant} MBConv kernels do not take cin={x.shape[1]} "
                          f"mid={p.wdw.shape[0]} cout={p.wproj.shape[1]} "

@@ -8,9 +8,12 @@
 - No `import` statement in the port's files or in `chip_smoke.py`, at any
   depth, names JAX or the JAX package (imports inside functions run only
   when called, so the probe alone would miss them).
-- With no card, the entry points refuse to run instead of using the CPU;
-  a kernel wrapper runs its plain version only for a CPU tensor, and a
-  missing `nvcc` raises.
+- The port imports no `cv2` (the card's machine has none): neither the
+  probe nor any `import` statement loads it.
+- With no card, the entry points refuse to run instead of using the CPU
+  (`optimizer_state_from_jax` too, whose default was the CPU); a kernel
+  wrapper runs its plain version only for a CPU tensor, and a missing
+  `nvcc` raises.
 - The port's presets equal the JAX package's, field for field.
 """
 
@@ -40,12 +43,14 @@ walked = [m.name for m in pkgutil.walk_packages(enhanced_unet_tpu_torch.__path__
 for name in walked:
     importlib.import_module(name)
 loaded = set(sys.modules) - before
-for pkg in ("jax", "jaxlib", "flax", "enhanced_unet_tpu"):
+for pkg in ("jax", "jaxlib", "flax", "enhanced_unet_tpu", "cv2"):
     bad = sorted(m for m in loaded if m == pkg or m.startswith(pkg + "."))
     assert not bad, bad
 for name in ("enhanced_unet_tpu_torch.ops.kernels.mbconv",
              "enhanced_unet_tpu_torch.ops.kernels.depthwise",
-             "enhanced_unet_tpu_torch.benchmarks.mbconv_instr"):
+             "enhanced_unet_tpu_torch.benchmarks.mbconv_instr",
+             "enhanced_unet_tpu_torch.postprocess.instances",
+             "enhanced_unet_tpu_torch.native", "enhanced_unet_tpu_torch.ops.tiling"):
     assert name in walked and name in loaded, name
 print("BOUNDARY OK", len(walked))
 """
@@ -86,6 +91,45 @@ def test_no_import_of_jax_or_the_jax_package(path):
         assert top not in ("jax", "jaxlib", "flax", "enhanced_unet_tpu"), (path, name)
 
 
+@pytest.mark.parametrize("path", _PORT_FILES)
+def test_no_import_of_cv2(path):
+    for name in _imported_names(os.path.join(REPO, path)):
+        assert name.split(".")[0] != "cv2", (path, name)
+
+
+def _optax_state():
+    """An optax chain(clip, adamw) state of the tiny flagship's tree."""
+    import jax.numpy as jnp
+    import optax
+
+    from enhanced_unet_tpu.convert.torch_import import convert_enhanced_unet
+
+    tiny = ("efficientnet-tiny", "efficientnet-tiny")
+    model = get_model("enhanced_unet", dtype=torch.float32, device="cpu", encoder_names=tiny)
+    params, _ = convert_enhanced_unet(model.state_dict(), tiny)
+    tx = optax.chain(optax.clip_by_global_norm(1.0), optax.adamw(1e-3, mu_dtype=jnp.bfloat16))
+    return tx.init(params), tiny
+
+
+def test_optimizer_state_from_jax_raises_without_a_card(monkeypatch):
+    from enhanced_unet_tpu_torch.convert import optimizer_state_from_jax
+
+    opt_state, tiny = _optax_state()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        optimizer_state_from_jax(opt_state, tiny)
+
+
+def test_optimizer_state_from_jax_on_the_cpu_when_asked():
+    from enhanced_unet_tpu_torch.convert import optimizer_state_from_jax
+
+    opt_state, tiny = _optax_state()
+    state = optimizer_state_from_jax(opt_state, tiny, torch.bfloat16, device="cpu")
+    assert state.count == 0 and len(state.mu) == len(state.nu) > 0
+    assert {t.device.type for t in [*state.mu.values(), *state.nu.values()]} == {"cpu"}
+    assert {t.dtype for t in state.mu.values()} == {torch.bfloat16}
+
+
 def test_entry_points_raise_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -106,6 +150,19 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "_loaded", {})
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.load("mbconv")
+
+
+@pytest.mark.parametrize("n,h,w,ok", [(65535, 1, 1, True), (65536, 1, 1, False),
+                                      (75, 512, 512, True), (8192, 512, 512, False)])
+def test_kernel_grid_limit(n, h, w, ok):
+    # K1 launches the batch as gridDim.z, K2 counts tiles in `int`
+    from enhanced_unet_tpu_torch.ops.kernels import build
+
+    if ok:
+        build.check_grid(n, h, w, "k")
+    else:
+        with pytest.raises(ValueError, match="beyond the kernels' grid"):
+            build.check_grid(n, h, w, "k")
 
 
 def test_kernel_wrappers_refuse_other_devices():

@@ -646,3 +646,93 @@ def test_eval_forward_with_grad_raises_on_card(cuda):
     with torch.no_grad():
         logits, _ = model(images)
     assert torch.isfinite(logits).all()
+
+
+def test_tiled_evaluator_on_card_matches_cpu(cuda):
+    # the tiny flagship in fp32, TTA on, tile 64 / overlap 16 over 96 x 128
+    # (six tiles): tile probabilities within 1e-4, masks on 99.9% of pixels
+    import numpy as np
+
+    from enhanced_unet_tpu_torch.models import get_model
+    from enhanced_unet_tpu_torch.ops.kernels import conv_fused, mbconv
+    from enhanced_unet_tpu_torch.train.evaluator import Evaluator
+
+    tiny = ("efficientnet-tiny", "efficientnet-tiny")
+    evs = {d: Evaluator(get_model("enhanced_unet", dtype=torch.float32, device=d, seed=2,
+                                  encoder_names=tiny), "enhanced_unet", device=d,
+                        tiled=True, tile=64, overlap=16) for d in ("cpu", cuda)}
+    img = np.random.default_rng(0).random((96, 128, 3)).astype(np.float32)
+    enh = torch.from_numpy(img)[None]
+    before = sum(mbconv.LAUNCHES.values()), sum(conv_fused.LAUNCHES.values())
+    with torch.inference_mode():
+        want = evs["cpu"].tiled_probs(enh)
+        got = evs[cuda].tiled_probs(enh.to(cuda))
+    assert sum(mbconv.LAUNCHES.values()) > before[0]
+    assert sum(conv_fused.LAUNCHES.values()) > before[1]
+    assert (got.cpu() - want).abs().max().item() <= 1e-4
+    masks = {d: ev.predict_semantic_mask(img) for d, ev in evs.items()}
+    assert masks[cuda].dtype == np.uint8 and masks[cuda].shape == (96, 128)
+    assert np.mean(masks[cuda] == masks["cpu"]) >= 0.999
+
+
+def test_native_host_ops_match_numpy(cuda):
+    import numpy as np
+
+    from enhanced_unet_tpu_torch import native
+    from enhanced_unet_tpu_torch.data import rle
+    from enhanced_unet_tpu_torch.metrics.instance import _pairwise_iou
+
+    rng = np.random.default_rng(1)
+    masks = (rng.random((5, 37, 53)) > rng.random((5, 1, 1))).astype(np.uint8)
+    masks[2] = 0
+    for m in masks:
+        np.testing.assert_array_equal(native.rle_counts(m), rle._mask_to_counts(m))
+        assert rle.encode_rle(m, native=True) == rle.encode_rle(m)
+    np.testing.assert_array_equal(_pairwise_iou(masks, masks[::-1], native=True),
+                                  _pairwise_iou(masks, masks[::-1]))
+
+
+def test_evaluate_on_card_uses_the_native_host_ops(cuda, monkeypatch):
+    import numpy as np
+
+    import chip_smoke
+    from enhanced_unet_tpu_torch import native
+    from enhanced_unet_tpu_torch.models import get_model
+    from enhanced_unet_tpu_torch.postprocess import semantic_to_instances
+    from enhanced_unet_tpu_torch.train.evaluator import _METRIC_KEYS, Evaluator
+
+    calls = {"rle_counts": 0, "pairwise_iou": 0}
+    for name in calls:
+        fn = getattr(native, name)
+        monkeypatch.setattr(native, name, lambda *a, _fn=fn, _n=name: (
+            calls.__setitem__(_n, calls[_n] + 1), _fn(*a))[1])
+    batch = chip_smoke.eval_batch(2, 96, 4)
+    ev = Evaluator(get_model("enhanced_unet", dtype=torch.float32, device=cuda, seed=2,
+                             encoder_names=("efficientnet-tiny", "efficientnet-tiny")),
+                   "enhanced_unet", device=cuda, verbose=False)
+    out = ev.evaluate([batch])
+    assert set(out) == set(_METRIC_KEYS) and all(np.isfinite(v) for v in out.values())
+    assert calls["rle_counts"] > 0
+    masks = ev.predict_semantic_masks(np.stack([it["image"] for it in batch["batch_items"]]))
+    labels = [l for m in masks for l in semantic_to_instances(m)[1]]
+    assert out["pred_live_count"] * 2 == sum(1 for l in labels if l == 0)
+    assert out["pred_dead_count"] * 2 == sum(1 for l in labels if l == 1)
+
+
+def test_kernels_refuse_a_batch_beyond_the_grid(cuda):
+    from enhanced_unet_tpu_torch.models.encoders import MBConvBlock
+    from enhanced_unet_tpu_torch.ops.kernels import conv_fused, mbconv
+
+    block = MBConvBlock(8, 8, 1, 1, 3, fused=True).eval().to(cuda)
+    p = block.fold()
+    x = torch.zeros(65536, 8, 2, 2, device=cuda, dtype=torch.bfloat16)
+    before = (dict(mbconv.LAUNCHES), dict(conv_fused.LAUNCHES))
+    with pytest.raises(ValueError, match="beyond the kernels' grid"):
+        mbconv.mbconv_infer_nchw(x, p, residual=True)
+    with pytest.raises(ValueError, match="beyond the kernels' grid"):
+        mbconv.mbconv_infer_nchw(x.float(), p, residual=True)
+    wt = torch.randn(3, 3, 8, 8, device=cuda)
+    ones = torch.ones(8, device=cuda)
+    with pytest.raises(ValueError, match="beyond the kernels' grid"):
+        conv_fused.fused_conv3x3_bn_relu(x.permute(0, 2, 3, 1).contiguous(), wt, ones, ones)
+    assert (dict(mbconv.LAUNCHES), dict(conv_fused.LAUNCHES)) == before
