@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's serving path on one CUDA card, end to end.
+"""Drive the PyTorch port's serving and training paths on one CUDA card, end
+to end.
 
     python3 chip_smoke.py
 
@@ -80,7 +81,8 @@ Phases (any failure exits non-zero):
     `tile_batch=8` against the whole-grid mask (at least 99.99% of pixels
     equal, the share printed); K2 at the trio's three fusion-head shapes
     (`[75,512,512,Cin]`, up to 5.0e9 elements) against its plain version
-    (2e-2 of max |value|) and timed;
+    (2e-2 of max |value|) and timed (held and `wall_ms`), beside cuDNN's
+    conv + BN + ReLU as one PyTorch call chain on the same inputs;
  4g. `evaluate` on the card: one loader-format batch of two 512^2 blob
     micrographs with their disks as ground-truth instances; every metric
     key present and finite, the predicted live/dead counts those of
@@ -111,7 +113,23 @@ Phases (any failure exits non-zero):
         fp32-to-fp64 distance where that is larger: train-mode BatchNorm
         at batch 2 makes fp32 gradients noise-limited) and in fp64
         (gradient tree within 1e-4);
- 7. a `{"kernels": [...]}` line, each entry's launches counted in the run
+ 7. the training entry point (`train.api.train_model`) at full width:
+    12 seeded 1360 x 1024 micrographs (JPEG, labelme JSON, 40 cells of
+    12-24 points each) split 8 / 1 / 3 and snapped to 640 x 480; the host's
+    ms per item (decode, resize, raster); 3 epochs of batch 2 padded to
+    640^2 with the full-Evaluator gate after the third (best_model and
+    last_model written, three finite losses, one val mIoU, K1 and K2
+    launched in the gate, its wall ms); a resume to epoch 4 (the step and
+    epoch restored, parameters and AdamW moments bitwise equal to the saved
+    state, epoch 4 only); one 2 x 640^2 batch through
+    `cell_specific_preprocess` and `apply_augment` on the card against the
+    CPU with the same draws (masks equal; the preprocess within 16 levels
+    and 0.9 of values equal, the bounds JAX's own jitted run keeps from its
+    op-by-op run on the CPU tests' inputs, 11 levels and 0.91; the
+    augmentation on the same input within 3 levels and 0.99 equal), its
+    device ms; the step's wall ms over whole epochs with `prefetch=2` and
+    `prefetch=0`; a profile of one epoch; peak memory;
+ 8. a `{"kernels": [...]}` line, each entry's launches counted in the run
     whose time and shape it reports (the serving kernels' also per tiled
     request, `tiled_launches`), the card line, and the final JSON line.
 
@@ -404,6 +422,291 @@ def tree_rel_l2(ours: dict, ref: dict) -> float:
     num = sum(((ours[k] - v) ** 2).sum().item() for k, v in ref.items())
     den = sum((v ** 2).sum().item() for v in ref.values())
     return (num / max(den, 1e-300)) ** 0.5
+
+
+MICROGRAPH_HW = (1024, 1360)   # phase 7: a common microscope camera frame
+MICROGRAPHS, CELLS = 12, 40    # train 8 / val 1 / test 3; cells a micrograph
+ENTRY_MAX_SIZE = 640           # the trainer's max_size: 1360 x 1024 -> 640 x 480
+ENTRY_STEPS = 4                # train steps an epoch: 8 micrographs, batch 2
+
+
+def write_micrographs(out_dir: str, n: int, seed: int) -> None:
+    """`n` seeded grey micrographs of MICROGRAPH_HW as JPEGs with labelme
+    JSON beside them: CELLS live and dead cells each, drawn as disks and
+    annotated as polygons of 12-24 points."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    h, w = MICROGRAPH_HW
+    yy, xx = np.mgrid[:h, :w]
+    for i in range(n):
+        img = 170 + 15 * np.sin(yy / 37.0) * np.cos(xx / 53.0) + rng.normal(0, 6, (h, w))
+        shapes = []
+        for _ in range(CELLS):
+            cx, cy, r = rng.uniform(30, w - 30), rng.uniform(30, h - 30), rng.uniform(12, 30)
+            k = int(rng.integers(12, 25))
+            theta = np.sort(rng.uniform(0, 2 * np.pi, k))
+            rad = r * rng.uniform(0.8, 1.2, k)
+            label = "live" if rng.random() < 0.6 else "dead"
+            shapes.append({"label": label, "points": np.stack(
+                [cx + rad * np.cos(theta), cy + rad * np.sin(theta)], 1).tolist()})
+            box = (slice(max(int(cy - r), 0), int(cy + r) + 2),
+                   slice(max(int(cx - r), 0), int(cx + r) + 2))
+            disk = (yy[box] - cy) ** 2 + (xx[box] - cx) ** 2 <= r * r
+            img[box][disk] = (130 if label == "live" else 90) + rng.normal(0, 4)
+        rgb = np.clip(np.repeat(img[..., None], 3, -1), 0, 255).astype(np.uint8)
+        name = f"micrograph_{i:03d}.jpg"
+        Image.fromarray(rgb).save(os.path.join(out_dir, name), quality=92)
+        with open(os.path.join(out_dir, name.replace(".jpg", ".json")), "w") as f:
+            json.dump({"shapes": shapes, "imageHeight": h, "imageWidth": w}, f)
+
+
+def host_ms_per_item(ds) -> dict:
+    """The host half of an item, by stage, in ms per item over `ds`: decode
+    (Pillow), the /32 resize, and the polygons' raster."""
+    import os
+
+    import numpy as np
+
+    from enhanced_unet_tpu_torch.data import dataset
+
+    ms = {"decode": 0.0, "resize": 0.0, "raster": 0.0, "item": 0.0}
+    for i, name in enumerate(ds.files):
+        t0 = time.perf_counter()
+        image = dataset._read_rgb(os.path.join(ds.data_dir, name))
+        t1 = time.perf_counter()
+        h, w = dataset.snap_to_multiple(*image.shape[:2], ds.max_size)
+        dataset._resize_image(image, (w, h))
+        t2 = time.perf_counter()
+        with open(os.path.join(ds.data_dir, name.replace(".jpg", ".json"))) as f:
+            shapes = json.load(f)["shapes"]
+        for shape in shapes:
+            pts = np.asarray(shape["points"], np.float32)
+            pts[:, 0] *= w / image.shape[1]
+            pts[:, 1] *= h / image.shape[0]
+            dataset._fill_polygon(np.zeros((h, w), np.uint8), pts.astype(np.int32))
+        t3 = time.perf_counter()
+        ds[i]
+        t4 = time.perf_counter()
+        for key, dt in zip(ms, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            ms[key] += 1e3 * dt / len(ds.files)
+    return ms
+
+
+def phase7_training_entry(card: str, counters, dev) -> None:
+    """7. The training entry point on the card: `train_model` from a folder
+    of micrographs, its gate, resume, the device pipeline against the CPU,
+    and the step with and without prefetch (see the module docstring)."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from enhanced_unet_tpu_torch.benchmarks.microtime import device_ms
+    from enhanced_unet_tpu_torch.config import get_preset
+    from enhanced_unet_tpu_torch.data.dataset import CellDataset, snap_to_multiple
+    from enhanced_unet_tpu_torch.data.loader import BatchLoader, _class_union
+    from enhanced_unet_tpu_torch.ops.augment import apply_augment, augment_params
+    from enhanced_unet_tpu_torch.ops.kernels import conv_fused, mbconv
+    from enhanced_unet_tpu_torch.ops.preprocess import cell_specific_preprocess
+    from enhanced_unet_tpu_torch.train import api
+    from enhanced_unet_tpu_torch.train.evaluator import Evaluator
+    from enhanced_unet_tpu_torch.train.trainer import make_train_step
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir, ckpt_dir = os.path.join(tmp, "micrographs"), os.path.join(tmp, "ckpt")
+        os.makedirs(data_dir)
+        t0 = time.perf_counter()
+        write_micrographs(data_dir, MICROGRAPHS, 31)
+        splits = {s: CellDataset(data_dir, s, max_size=ENTRY_MAX_SIZE)
+                  for s in ("train", "val", "test")}
+        train_ds = splits["train"]
+        check([len(d) for d in splits.values()] == [8, 1, 3], "the 70/15/15 split: 8 / 1 / 3")
+        item = train_ds[0]
+        snapped = snap_to_multiple(*MICROGRAPH_HW, ENTRY_MAX_SIZE)
+        check(item["semantic_mask"].shape == snapped
+              and item["original_size"] == MICROGRAPH_HW
+              and len(item["instance_masks"]) >= CELLS // 2,
+              f"a {MICROGRAPH_HW} micrograph snaps to {snapped} with its cells")
+        host = host_ms_per_item(train_ds)
+        print(f"[{card}] training data: {MICROGRAPHS} micrographs {MICROGRAPH_HW[1]} x "
+              f"{MICROGRAPH_HW[0]} written in "
+              f"{time.perf_counter() - t0:.1f} s; host ms per item (8 items): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in host.items()))
+
+        # first run: 3 epochs, the full-Evaluator gate after the third
+        cfg = dataclasses.replace(get_preset("enhanced_unet"), num_epochs=3, eval_every_epochs=3)
+        gates, saved, restored, logs = [], {}, {}, []
+        real_evaluate, real_save, real_load = (Evaluator.evaluate, api.save_checkpoint,
+                                               api.load_checkpoint)
+
+        def timed_evaluate(self, loader):
+            reset(counters)
+            t0 = time.perf_counter()
+            out = real_evaluate(self, loader)
+            torch.cuda.synchronize()
+            gates.append((1e3 * (time.perf_counter() - t0),
+                          {**conv_fused.LAUNCHES, **mbconv.LAUNCHES}))
+            return out
+
+        def recording_save(path, state, *args):
+            real_save(path, state, *args)
+            if path.endswith("last_model"):
+                saved.update(step=state.step,
+                             model={k: v.clone() for k, v in state.model.state_dict().items()},
+                             mu={k: v.clone() for k, v in state.opt_state.mu.items()},
+                             nu={k: v.clone() for k, v in state.opt_state.nu.items()})
+
+        def recording_load(path, state):
+            state, meta = real_load(path, state)
+            sd = state.model.state_dict()
+            restored.update(
+                step=state.step, epoch=meta["epoch"],
+                model=all(torch.equal(sd[k], v) for k, v in saved["model"].items()),
+                mu=all(torch.equal(state.opt_state.mu[k], v) for k, v in saved["mu"].items()),
+                nu=all(torch.equal(state.opt_state.nu[k], v) for k, v in saved["nu"].items()))
+            return state, meta
+
+        Evaluator.evaluate, api.save_checkpoint = timed_evaluate, recording_save
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            best = api.train_model("enhanced_unet", data_dir=data_dir, checkpoint_dir=ckpt_dir,
+                                   max_size=ENTRY_MAX_SIZE, cfg=cfg, log=logs.append)
+            first_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            Evaluator.evaluate, api.save_checkpoint = real_evaluate, real_save
+        last = os.path.join(os.path.dirname(best), "last_model")
+        with open(os.path.join(last, "meta.json")) as f:
+            history = json.load(f)["history"]
+        gate_launches = gates[0][1] if gates else {}
+        print(f"[{card}] train_model enhanced_unet b5/b4 bf16, 3 epochs of {ENTRY_STEPS} steps "
+              f"(batch 2, pad {ENTRY_MAX_SIZE}^2), gate after epoch 3: {first_s:.1f} s; losses "
+              f"{history['train_loss']}; epoch s {history['epoch_time_sec']}; images/s "
+              f"{history['images_per_sec']}; val mIoU {history['val_miou']}; gate wall ms "
+              f"{[round(g[0], 1) for g in gates]}, launches {json.dumps(gate_launches)}; "
+              f"peak memory {peak} bytes; log {logs}")
+        check(os.path.exists(os.path.join(best, "state.pt"))
+              and os.path.exists(os.path.join(last, "state.pt")),
+              "best_model and last_model written")
+        check(len(history["train_loss"]) == 3 and all(math.isfinite(v)
+                                                      for v in history["train_loss"]),
+              "three finite epoch losses")
+        check(len(history["val_miou"]) == 1 and len(gates) == 1, "one gate, after epoch 3")
+        check(gate_launches.get("mbconv_nhwc_pass1", 0) > 0
+              and gate_launches.get("mbconv_nhwc_pass2", 0) > 0, "the gate launched K1")
+        check(gate_launches.get("conv3x3_bn_act_wgmma", 0)
+              + gate_launches.get("conv3x3_bn_act_smallc", 0) > 0, "the gate launched K2")
+        check(saved.get("step") == 3 * ENTRY_STEPS, f"the saved step {saved.get('step')}")
+
+        # resume with a budget of 4: epoch 4 only, from the saved state
+        api.load_checkpoint = recording_load
+        logs.clear()
+        try:
+            api.train_model("enhanced_unet", data_dir=data_dir, checkpoint_dir=ckpt_dir,
+                            max_size=ENTRY_MAX_SIZE, cfg=dataclasses.replace(cfg, num_epochs=4),
+                            resume=True, log=logs.append)
+        finally:
+            api.load_checkpoint = real_load
+        with open(os.path.join(last, "meta.json")) as f:
+            meta = json.load(f)
+        step_after = torch.load(os.path.join(last, "state.pt"), map_location="cpu",
+                                weights_only=True)["step"]
+        print(f"[{card}] resume: restored step {restored.get('step')} at epoch "
+              f"{restored.get('epoch')}, parameters/mu/nu bitwise "
+              f"{restored.get('model')}/{restored.get('mu')}/{restored.get('nu')}; log {logs}; "
+              f"epoch {meta['epoch']}, step {step_after}")
+        check(restored.get("step") == 3 * ENTRY_STEPS and restored.get("epoch") == 3,
+              "resume restored the step count and the epoch")
+        check(restored.get("model") and restored.get("mu") and restored.get("nu"),
+              "the restored parameters and AdamW moments equal the saved ones bitwise")
+        check([line for line in logs if line.startswith("Epoch")] == [logs[1]]
+              and logs[1].startswith("Epoch 4/4"), "the resumed run trains epoch 4 only")
+        check(meta["epoch"] == 4 and meta["history"]["train_loss"][:3] == history["train_loss"]
+              and step_after == 4 * ENTRY_STEPS, "the resumed run continues the history")
+        del saved
+
+        # the device pipeline: one 2 x 640^2 batch, card against the CPU
+        items = [train_ds[0], train_ds[1]]
+        pad = ((0, ENTRY_MAX_SIZE - snapped[0]), (0, ENTRY_MAX_SIZE - snapped[1]))
+        cpu_in = (torch.from_numpy(np.stack([np.pad(it["image_u8"], pad + ((0, 0),))
+                                             for it in items])).float(),
+                  *(torch.from_numpy(np.stack([np.pad(_class_union(it, c), pad)
+                                               for it in items])) for c in (0, 1)),
+                  torch.from_numpy(np.stack([np.pad(it["semantic_mask"], pad)
+                                             for it in items])).long())
+        card_in = [t.to(dev) for t in cpu_in]
+        params = augment_params(torch.Generator().manual_seed(5), 2, ENTRY_MAX_SIZE,
+                                ENTRY_MAX_SIZE, "cpu")
+        card_params = {k: v.to(dev) for k, v in params.items()}
+        pre_cpu = cell_specific_preprocess(*cpu_in[:3])
+        pre_card = cell_specific_preprocess(*card_in[:3])
+        aug_cpu, masks_cpu = apply_augment(pre_cpu, cpu_in[3], params)
+        aug_card, masks_card = apply_augment(pre_cpu.to(dev), card_in[3], card_params)
+        full_card, full_masks = apply_augment(pre_card, card_in[3], card_params)
+
+        def levels(card_t, cpu_t):
+            d = (card_t.cpu() - cpu_t).abs()
+            return d.max().item(), (d == 0).float().mean().item()
+
+        pre_max, pre_eq = levels(pre_card, pre_cpu)
+        aug_max, aug_eq = levels(aug_card, aug_cpu)
+        full_max, full_eq = levels(full_card, aug_cpu)
+        pipe_ms = device_ms(lambda: apply_augment(cell_specific_preprocess(*card_in[:3]),
+                                                  card_in[3], card_params), 5)
+        pipe_wall = device_ms(lambda: apply_augment(cell_specific_preprocess(*card_in[:3]),
+                                                    card_in[3], card_params), 5, held=False)
+        print(f"[{card}] device pipeline, 2 x {ENTRY_MAX_SIZE}^2: preprocess card vs cpu max "
+              f"{pre_max} levels, {pre_eq:.6f} equal (tol: 16 levels, 0.9 equal); augmentation "
+              f"on the same input max {aug_max}, {aug_eq:.6f} equal (tol: 3, 0.99); both "
+              f"max {full_max}, {full_eq:.6f} equal; masks equal "
+              f"{torch.equal(masks_card.cpu(), masks_cpu)}; preprocess + augment {pipe_ms:.3f} "
+              f"ms device, {pipe_wall:.3f} ms with the host's launches (events)")
+        check(torch.equal(masks_card.cpu(), masks_cpu) and torch.equal(full_masks.cpu(),
+                                                                      masks_cpu),
+              "the card's augmented masks equal the CPU's")
+        check(pre_max <= 16 and pre_eq >= 0.9, "the card's preprocess within the CPU tests' "
+              "bounds (JAX's jitted run is 11 levels and 91% equal from its op-by-op run)")
+        check(aug_max <= 3 and aug_eq >= 0.99, "the card's augmentation within 3 levels, "
+              "0.99 equal")
+        del pre_cpu, aug_cpu, cpu_in
+
+        # the step with and without the producer thread, whole epochs
+        state = [api._build_state("enhanced_unet", cfg, ENTRY_STEPS, torch.bfloat16, dev)]
+        step = make_train_step(cfg)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        loaders = {p: BatchLoader(train_ds, 2, (ENTRY_MAX_SIZE, ENTRY_MAX_SIZE), train=True,
+                                  prefetch=p, device=dev) for p in (2, 0)}
+
+        def epoch(loader):
+            torch.cuda.synchronize()
+            t0, n = time.perf_counter(), 0
+            for batch in loader:
+                state[0], _ = step(state[0], batch["images"], batch["semantic_masks"],
+                                   batch["valid_mask"], gen)
+                n += 1
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t0) / n
+
+        epoch(loaders[2])
+        step_ms = {2: [], 0: []}
+        for p in (2, 0, 0, 2):
+            step_ms[p].append(epoch(loaders[p]))
+        print(f"[{card}] train step wall ms (whole epochs of {ENTRY_STEPS}, after a warm "
+              f"epoch): prefetch=2 {[round(v, 1) for v in step_ms[2]]}, prefetch=0 "
+              f"{[round(v, 1) for v in step_ms[0]]}")
+        profile_run(lambda: epoch(loaders[2]), ENTRY_STEPS * min(step_ms[2]),
+                    f"one train epoch ({ENTRY_STEPS} steps, prefetch=2) on {card}",
+                    TRAIN_GROUPS)
+        del state, loaders
+    torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
@@ -1181,11 +1484,14 @@ def main(argv=None) -> int:
                                 / want.float().abs().max()).item())
             del got, want
             ms = device_ms(lambda: conv_fused.fused_conv3x3_bn_relu_packed(x, packed, True), 5)
+            wall = device_ms(lambda: conv_fused.fused_conv3x3_bn_relu_packed(x, packed, True),
+                             5, held=False)
+            library = device_ms(lambda: conv_library(x, wt, sc, sh, True), 5)
         b, kind = conv_bound(n_trio, TILE, TILE, cin, cout)
-        print(f"K2 at the tiled trio's [{n_trio},{TILE},{TILE},{cin}]->{cout} "
+        print(f"[{card}] K2 at the tiled trio's [{n_trio},{TILE},{TILE},{cin}]->{cout} "
               f"({x.numel()} input, {n_trio * TILE * TILE * cout} output elements; "
-              f"{packed.variant}): rel err {rel:.3e} (tol 2e-2), kernel {ms:.4f} ms, bound "
-              f"{b:.4f} ms ({kind})")
+              f"{packed.variant}): rel err {rel:.3e} (tol 2e-2), kernel {ms:.4f} ms (wall "
+              f"{wall:.4f}), cuDNN conv + BN + ReLU {library:.4f} ms, bound {b:.4f} ms ({kind})")
         check(rel <= 2e-2, f"K2 at the tiled trio's {cin}->{cout} against its plain version")
         del x, packed
     torch.cuda.empty_cache()
@@ -1407,7 +1713,10 @@ def main(argv=None) -> int:
     check(grad32 <= grad_tol, "tiny fp32 gradients within 1e-3 (or the fp32 noise) of the cpu")
     check(grad64 <= 1e-4, "tiny fp64 gradients within 1e-4 of the cpu")
 
-    # ---- 7. report -------------------------------------------------------
+    # ---- 7. the training entry point ---------------------------------------
+    phase7_training_entry(card, counters, dev)
+
+    # ---- 8. report -------------------------------------------------------
     meta = {
         "conv3x3_bn_act_wgmma": ("enhanced_unet_tpu_torch/csrc/conv3x3_bn_act.cu",
                                  "enhanced_unet_tpu/ops/pallas/conv_fused.py:109"),

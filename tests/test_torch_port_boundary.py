@@ -8,8 +8,10 @@
 - No `import` statement in the port's files or in `chip_smoke.py`, at any
   depth, names JAX or the JAX package (imports inside functions run only
   when called, so the probe alone would miss them).
-- The port imports no `cv2` (the card's machine has none): neither the
-  probe nor any `import` statement loads it.
+- The port imports no `cv2`: neither the probe nor any `import` statement
+  loads it (the dataset computes OpenCV's polygons and resizes itself).
+  Importing the port loads no Pillow either: the dataset imports it when
+  it reads its first image.
 - With no card, the entry points refuse to run instead of using the CPU
   (`optimizer_state_from_jax` too, whose default was the CPU); a kernel
   wrapper runs its plain version only for a CPU tensor, and a missing
@@ -28,7 +30,9 @@ import torch
 
 from enhanced_unet_tpu import config as jconfig
 from enhanced_unet_tpu_torch import config
+from enhanced_unet_tpu_torch.data import BatchLoader, CellDataset
 from enhanced_unet_tpu_torch.models import EnhancedUNet, get_model
+from enhanced_unet_tpu_torch.train.api import train_model
 from enhanced_unet_tpu_torch.train.evaluator import Evaluator
 
 torch.set_num_threads(1)
@@ -43,14 +47,17 @@ walked = [m.name for m in pkgutil.walk_packages(enhanced_unet_tpu_torch.__path__
 for name in walked:
     importlib.import_module(name)
 loaded = set(sys.modules) - before
-for pkg in ("jax", "jaxlib", "flax", "enhanced_unet_tpu", "cv2"):
+for pkg in ("jax", "jaxlib", "flax", "enhanced_unet_tpu", "cv2", "PIL"):
     bad = sorted(m for m in loaded if m == pkg or m.startswith(pkg + "."))
     assert not bad, bad
 for name in ("enhanced_unet_tpu_torch.ops.kernels.mbconv",
              "enhanced_unet_tpu_torch.ops.kernels.depthwise",
              "enhanced_unet_tpu_torch.benchmarks.mbconv_instr",
              "enhanced_unet_tpu_torch.postprocess.instances",
-             "enhanced_unet_tpu_torch.native", "enhanced_unet_tpu_torch.ops.tiling"):
+             "enhanced_unet_tpu_torch.native", "enhanced_unet_tpu_torch.ops.tiling",
+             "enhanced_unet_tpu_torch.ops.preprocess", "enhanced_unet_tpu_torch.ops.augment",
+             "enhanced_unet_tpu_torch.data.dataset", "enhanced_unet_tpu_torch.data.loader",
+             "enhanced_unet_tpu_torch.train.checkpoint", "enhanced_unet_tpu_torch.train.api"):
     assert name in walked and name in loaded, name
 print("BOUNDARY OK", len(walked))
 """
@@ -130,7 +137,7 @@ def test_optimizer_state_from_jax_on_the_cpu_when_asked():
     assert {t.dtype for t in state.mu.values()} == {torch.bfloat16}
 
 
-def test_entry_points_raise_without_a_card(monkeypatch):
+def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         get_model("enhanced_unet")
@@ -139,6 +146,12 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     model = EnhancedUNet(encoder_names=("efficientnet-tiny", "efficientnet-tiny"))
     with pytest.raises(RuntimeError, match="CUDA"):
         Evaluator(model, "enhanced_unet")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BatchLoader(CellDataset(str(tmp_path), files=[]), 2, (64, 64))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_model("enhanced_unet", data_dir=str(tmp_path),
+                    checkpoint_dir=str(tmp_path / "ck"))
+    assert not os.path.exists(tmp_path / "ck")
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -736,3 +736,87 @@ def test_kernels_refuse_a_batch_beyond_the_grid(cuda):
     with pytest.raises(ValueError, match="beyond the kernels' grid"):
         conv_fused.fused_conv3x3_bn_relu(x.permute(0, 2, 3, 1).contiguous(), wt, ones, ones)
     assert (dict(mbconv.LAUNCHES), dict(conv_fused.LAUNCHES)) == before
+
+
+def _pipeline_batch(cuda):
+    """Two seeded 96^2 micrographs with live and dead regions, and the
+    augmentation's draws, on the CPU and on the card."""
+    import chip_smoke
+    from enhanced_unet_tpu_torch.ops.augment import augment_params
+
+    images, masks, _ = chip_smoke.blob_batch(2, 96, 96, 8)
+    masks = torch.from_numpy(masks)
+    cpu = (torch.floor(torch.from_numpy(images) * 255.0), (masks == 1).to(torch.uint8),
+           (masks == 2).to(torch.uint8), masks)
+    params = augment_params(torch.Generator().manual_seed(2), 2, 96, 96, "cpu")
+    return cpu, params, [t.to(cuda) for t in cpu], {k: v.to(cuda) for k, v in params.items()}
+
+
+def test_device_pipeline_on_card_matches_cpu(cuda):
+    # chip_smoke.py phase 7's bounds: the augmentation on the same input
+    # within 3 grey levels and 0.99 of the values equal, the preprocess
+    # within 16 levels and 0.9 equal (JAX's jitted run keeps 11 and 0.91
+    # from its own op-by-op run), masks equal
+    from enhanced_unet_tpu_torch.ops.augment import apply_augment
+    from enhanced_unet_tpu_torch.ops.preprocess import cell_specific_preprocess
+
+    cpu, params, card, card_params = _pipeline_batch(cuda)
+    pre_cpu = cell_specific_preprocess(*cpu[:3])
+    pre = (cell_specific_preprocess(*card[:3]).cpu() - pre_cpu).abs()
+    assert pre.max() <= 16 and (pre == 0).float().mean() >= 0.9
+    want, want_masks = apply_augment(pre_cpu, cpu[3], params)
+    got, got_masks = apply_augment(pre_cpu.to(cuda), card[3], card_params)
+    assert torch.equal(got_masks.cpu(), want_masks)
+    aug = (got.cpu() - want).abs()
+    assert aug.max() <= 3 and (aug == 0).float().mean() >= 0.99
+
+
+def test_loader_on_card_with_and_without_prefetch(cuda, tmp_path, monkeypatch):
+    import chip_smoke
+    from enhanced_unet_tpu_torch.data import BatchLoader, CellDataset
+
+    monkeypatch.setattr(chip_smoke, "MICROGRAPH_HW", (200, 272))
+    monkeypatch.setattr(chip_smoke, "CELLS", 8)
+    chip_smoke.write_micrographs(str(tmp_path), 4, 3)
+    ds = CellDataset(str(tmp_path), max_size=128,
+                     files=sorted(f.name for f in tmp_path.iterdir() if f.suffix == ".jpg"))
+    runs = [list(BatchLoader(ds, 2, (128, 128), train=True, seed=4, prefetch=p, device=cuda))
+            for p in (2, 0)]
+    for a, b in zip(*runs):
+        assert a["images"].device.type == "cuda" and a["images"].shape == (2, 128, 128, 3)
+        for key in ("images", "semantic_masks", "valid_mask"):
+            assert torch.equal(a[key], b[key]), key
+
+
+def test_train_model_one_epoch_on_card(cuda, tmp_path, monkeypatch):
+    import dataclasses
+    import json
+    import os
+
+    import chip_smoke
+    import numpy as np
+    from enhanced_unet_tpu_torch import models
+    from enhanced_unet_tpu_torch.config import get_preset
+    from enhanced_unet_tpu_torch.ops.kernels import conv_fused, mbconv
+    from enhanced_unet_tpu_torch.train import api
+
+    real = models.get_model
+    monkeypatch.setattr(api, "get_model", lambda name, **kw: real(
+        name, encoder_names=("efficientnet-tiny", "efficientnet-tiny"), **kw))
+    monkeypatch.setattr(chip_smoke, "MICROGRAPH_HW", (200, 272))
+    monkeypatch.setattr(chip_smoke, "CELLS", 8)
+    data = tmp_path / "data"
+    data.mkdir()
+    chip_smoke.write_micrographs(str(data), 7, 5)
+    cfg = dataclasses.replace(get_preset("enhanced_unet"), num_epochs=1, eval_every_epochs=1)
+    k1, k2 = sum(mbconv.LAUNCHES.values()), sum(conv_fused.LAUNCHES.values())
+    best = api.train_model("enhanced_unet", data_dir=str(data), max_size=128, cfg=cfg,
+                           checkpoint_dir=str(tmp_path / "ck"), log=lambda *a: None)
+    assert sum(mbconv.LAUNCHES.values()) > k1 and sum(conv_fused.LAUNCHES.values()) > k2
+    last = os.path.join(os.path.dirname(best), "last_model")
+    with open(os.path.join(last, "meta.json")) as f:
+        history = json.load(f)["history"]
+    assert len(history["train_loss"]) == 1 and np.isfinite(history["train_loss"][0])
+    assert len(history["val_miou"]) == 1 and os.path.exists(os.path.join(best, "state.pt"))
+    saved = torch.load(os.path.join(last, "state.pt"), map_location="cpu", weights_only=True)
+    assert saved["step"] == 2      # 4 train images, batch 2

@@ -205,6 +205,63 @@ def test_fixtures_reach_the_split_paths():
                     "5x5 split", "kept whole"}, seen
 
 
+def _two_cells_on_a_neck(width):
+    """Two disks of radius 11 joined by a horizontal neck `width` pixels
+    thick: erosion by 2 cuts the neck, and each piece grows back to more
+    than 200 pixels."""
+    yy, xx = np.mgrid[:40, :64]
+    sem = np.zeros((40, 64), np.uint8)
+    for cx in (16, 46):
+        sem[(yy - 20) ** 2 + (xx - cx) ** 2 <= 121] = 1
+    sem[20 - width // 2:20 - width // 2 + width, 16:47] = 1
+    return sem
+
+
+@pytest.mark.parametrize("width", [2, 3])
+def test_large_pieces_reach_the_resplit(width):
+    """A piece over 200 px after the first split enters the one-level
+    re-split (reference train_eval.py:716-735), which erodes it by 2 and
+    keeps it whole; held against the JAX package run with OpenCV."""
+    _cv2()
+    sem = _two_cells_on_a_neck(width)
+    assert "large piece" in _split_paths(sem)
+    k3 = instances.ellipse(3)
+    region = instances._label(instances.morph_open(sem, instances.ellipse(2)))[0] == 1
+    area = int(region.sum())
+    assert instances.LARGE_REGION <= area < 3000          # erosion by 2 splits it
+    sub, n = instances._label(instances.erode(region.astype(np.uint8), k3, 2))
+    assert n == 2
+    for j in (1, 2):
+        grown = instances.dilate((sub == j).astype(np.uint8), k3, 2) & region
+        assert grown.sum() > instances.LARGE_REGION
+        assert instances._label(instances.erode(grown, k3, 2))[1] == 1
+    masks, labels, _ = _check_instances(sem)
+    assert len(masks) == 2 and labels == [0, 0]
+
+
+def test_resplit_never_finds_two_pieces():
+    """Why no mask reaches the re-split's second split: a piece P of the
+    region's erosion by `iters` has its grown region dilate(P, iters)
+    inside the region, and eroding that by 2 is the closing of
+    dilate(P, iters - 2), which stays in one piece for every connected P
+    tried (seeded random walks, in the interior and against the border)."""
+    k3 = instances.ellipse(3)
+    rng = np.random.default_rng(0)
+    moves = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1) if dy or dx]
+    for t in range(300):
+        size = 16
+        piece = np.zeros((size, size), np.uint8)
+        y, x = (int(v) for v in rng.integers(0, size, 2))
+        for _ in range(int(rng.integers(3, 40))):
+            piece[y, x] = 1
+            dy, dx = moves[int(rng.integers(8))]
+            y, x = min(max(y + dy, 0), size - 1), min(max(x + dx, 0), size - 1)
+        assert instances._label(piece)[1] == 1
+        iters = int(rng.integers(2, 5))
+        grown = instances.dilate(piece, k3, iters)
+        assert instances._label(instances.erode(grown, k3, 2))[1] == 1, (t, iters)
+
+
 def test_semantic_to_instances_on_the_tiny_flagships_masks(rng):
     _cv2()
     ev = Evaluator(_tiny_model(), "enhanced_unet", device="cpu", enable_tta=False)
