@@ -129,6 +129,33 @@ Phases (any failure exits non-zero):
     augmentation on the same input within 3 levels and 0.99 equal), its
     device ms; the step's wall ms over whole epochs with `prefetch=2` and
     `prefetch=0`; a profile of one epoch; peak memory;
+ 7b. the user-facing entry points at full width on phase 7's micrographs
+    and its `best_model`, every count set to 0 before each run and read
+    after it (K1's `nhwc` and K2's wgmma/small-Cin kernels must launch, and
+    no plain version of K1 or K2 may run): `evaluate_model` on the val
+    split without figures, with them and without (every metric key present
+    and finite, the results JSON written, the 22 figures as PNG and SVG and
+    the cell-count CSV written, no figure warning; its seconds, the
+    figures' share and peak memory); `predict_model` (on phase 4's seeded
+    serving weights, checkpointed: phase 7's best_model may decide no cell
+    yet, which would leave the count check vacuous) over the 3 test
+    micrographs, batched
+    at max_size 640 (one chunk) and tiled at 2048 (full resolution, 1344 x
+    1024, tile 512, overlap 64), two runs each, the first warm (a row and
+    two PNGs an image, cells found, each row's counts those of
+    `semantic_to_instances` on the mask the card returned; serving ms per
+    image from `StepTimer`, whole-call ms per image with the call's model
+    build and checkpoint load, peak memory); one more batched run with its
+    chunk under `trace_context` (a trace with the card's kernels);
+    `visualize_model(regenerate_predictions=True)` (returns the saved
+    results); `initialize_pretrained` into the full-width flagship on the
+    card from seeded upstream-layout b5/b4 files (the encoders' keys plus
+    efficientnet-pytorch's classifier head): `verify=True` refuses the
+    files under the manifest's names and writes nothing, then takes copies
+    named after their own SHA256 prefix; every encoder tensor equals its
+    file's, every other tensor is unchanged.  Without matplotlib the phase
+    says so on a line of its own and runs `evaluate_model` without
+    figures and no `visualize_model`;
  8. a `{"kernels": [...]}` line, each entry's launches counted in the run
     whose time and shape it reports (the serving kernels' also per tiled
     request, `tiled_launches`), the card line, and the final JSON line.
@@ -706,6 +733,336 @@ def phase7_training_entry(card: str, counters, dev) -> None:
                     f"one train epoch ({ENTRY_STEPS} steps, prefetch=2) on {card}",
                     TRAIN_GROUPS)
         del state, loaders
+        phase7b_entry_points(card, counters, dev, tmp, data_dir, best)
+    torch.cuda.empty_cache()
+
+
+PREDICT_RUNS = 2                  # phase 7b: timed predict_model runs a mode, the first warm
+
+
+def effnet_files(model, out_dir: str, seed: int) -> dict:
+    """Upstream-layout (efficientnet-pytorch) weight files for the model's
+    two encoders, seeded: the encoders' own keys and shapes plus the
+    classifier head (`_conv_head`, `_bn1`, `_fc`), each written under the
+    manifest's name and under a name that carries its own SHA256 prefix.
+    Returns {variant: (state dict, own name)}."""
+    import hashlib
+    import os
+
+    import torch
+
+    from enhanced_unet_tpu_torch.convert.pretrained import WEIGHT_MANIFEST
+
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    for variant, path in (("efficientnet-b5", "unetpp.encoder"),
+                          ("efficientnet-b4", "deeplab.encoder")):
+        sd = {}
+        for k, v in model.get_submodule(path).state_dict().items():
+            if k.endswith("num_batches_tracked"):
+                sd[k] = torch.tensor(1000)
+            elif k.endswith("running_var"):
+                sd[k] = torch.rand(v.shape, generator=g) + 0.5
+            else:
+                sd[k] = torch.randn(v.shape, generator=g) * 0.05
+        last = max(int(k.split(".")[1]) for k in sd if k.startswith("_blocks."))
+        cin = sd[f"_blocks.{last}._project_conv.weight"].shape[0]
+        head = 4 * cin                                  # round_filters(1280) for b4/b5
+        sd.update({"_conv_head.weight": torch.randn(head, cin, 1, 1, generator=g),
+                   "_bn1.weight": torch.ones(head), "_bn1.bias": torch.zeros(head),
+                   "_bn1.running_mean": torch.zeros(head), "_bn1.running_var": torch.ones(head),
+                   "_bn1.num_batches_tracked": torch.tensor(1000),
+                   "_fc.weight": torch.randn(1000, head, generator=g) * 0.01,
+                   "_fc.bias": torch.zeros(1000)})
+        manifest_path = os.path.join(out_dir, WEIGHT_MANIFEST[variant]["file"])
+        torch.save(sd, manifest_path)
+        with open(manifest_path, "rb") as f:
+            h8 = hashlib.sha256(f.read()).hexdigest()[:8]
+        own = f"{variant}-{h8}.pth"
+        os.link(manifest_path, os.path.join(out_dir, own))
+        out[variant] = (sd, own)
+    return out
+
+
+def phase7b_entry_points(card: str, counters, dev, tmp: str, data_dir: str, best: str) -> None:
+    """7b. The user-facing entry points at full width on phase 7's
+    micrographs and `best_model` (see the module docstring)."""
+    import os
+
+    import torch
+
+    from enhanced_unet_tpu_torch.config import get_preset
+    from enhanced_unet_tpu_torch.convert import pretrained
+    from enhanced_unet_tpu_torch.data.dataset import CellDataset, snap_to_multiple
+    from enhanced_unet_tpu_torch.ops.kernels import conv_fused, mbconv
+    from enhanced_unet_tpu_torch.postprocess import semantic_to_instances
+    from enhanced_unet_tpu_torch.train import api
+    from enhanced_unet_tpu_torch.train.checkpoint import save_checkpoint
+    from enhanced_unet_tpu_torch.train.evaluator import _METRIC_KEYS, Evaluator
+    from enhanced_unet_tpu_torch.train.trainer import create_train_state
+    from enhanced_unet_tpu_torch.utils import StepTimer, trace_context
+
+    try:
+        import matplotlib  # noqa: F401
+        figures = True
+    except ImportError:
+        figures = False
+        print(f"[{card}] matplotlib is not installed on this machine: evaluate_model runs "
+              "with generate_visualizations=False, visualize_model is not run")
+
+    plain = {"conv3x3_bn_act": 0, "mbconv": 0}
+    real_plain = (conv_fused.fused_conv3x3_bn_relu_plain, mbconv.mbconv_infer_nchw_plain)
+
+    def counted(name, fn):
+        def run(*a, **kw):
+            plain[name] += 1
+            return fn(*a, **kw)
+        return run
+
+    def k1_k2(what):
+        launches = {**conv_fused.LAUNCHES, **mbconv.LAUNCHES}
+        check(launches["mbconv_nhwc_pass1"] > 0 and launches["mbconv_nhwc_pass2"] > 0,
+              f"{what} launched K1")
+        check(launches["conv3x3_bn_act_wgmma"] + launches["conv3x3_bn_act_smallc"] > 0,
+              f"{what} launched K2")
+        check(plain == {"conv3x3_bn_act": 0, "mbconv": 0},
+              f"{what} ran no plain version of K1 or K2 ({plain})")
+        return {k: v for k, v in launches.items() if v}
+
+    cfg = get_preset("enhanced_unet")
+    results_dir = os.path.join(tmp, "results")
+    save_dir = os.path.join(results_dir, "enhanced_unet")
+    conv_fused.fused_conv3x3_bn_relu_plain = counted("conv3x3_bn_act", real_plain[0])
+    mbconv.mbconv_infer_nchw_plain = counted("mbconv", real_plain[1])
+    try:
+        # evaluate_model on the val split: without figures, with them, without
+        logs, seconds, launches, peaks = [], {}, {}, []
+        for run, figs in enumerate((False, figures, False)):
+            reset(counters)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            results = api.evaluate_model("enhanced_unet", data_dir, best,
+                                         results_dir=results_dir, max_size=ENTRY_MAX_SIZE,
+                                         generate_visualizations=figs, log=logs.append)
+            torch.cuda.synchronize()
+            seconds.setdefault(figs, []).append(time.perf_counter() - t0)
+            peaks.append(torch.cuda.max_memory_allocated())
+            launches[run] = k1_k2("evaluate_model")
+        with open(os.path.join(save_dir, "enhanced_unet_results.json")) as f:
+            saved = json.load(f)
+        plain_s = min(seconds[False])
+        fig_s = seconds[True][0] if figures else None
+        written = sorted(os.listdir(save_dir))
+        print(f"[{card}] evaluate_model enhanced_unet b5/b4 bf16 on the val split "
+              f"(1 micrograph {MICROGRAPH_HW[1]} x {MICROGRAPH_HW[0]} -> "
+              f"{ENTRY_MAX_SIZE} max side), TTA, best_model of phase 7: "
+              f"{[round(v, 3) for v in seconds[False]]} s without figures"
+              + (f", {fig_s:.3f} s with them (figures' share "
+                 f"{(fig_s - plain_s) / fig_s:.3f}), {len(written)} files written"
+                 if figures else "")
+              + f"; peak memory {peaks} bytes; launches {json.dumps(launches[0])}; "
+              f"metrics {json.dumps(results)}")
+        warnings = [m for m in logs if "warning" in m.lower()]
+        check(set(results) == set(_METRIC_KEYS)
+              and all(math.isfinite(v) for v in results.values()),
+              "evaluate_model gives every metric, finite")
+        check(saved == results, "evaluate_model wrote its results JSON")
+        check(not warnings, f"evaluate_model logged no warning ({warnings})")
+        if figures:
+            expected = {"training_curves", "class_wise_metrics", "learning_rate",
+                        "gradient_flow", "sample_grid", "confusion_matrix", "predictions",
+                        "cell_statistics", "per_image_metrics", "error_analysis",
+                        "class_distribution", "spatial_analysis", "roc_curves", "pr_curves",
+                        "boundary_accuracy", "size_performance", "calibration",
+                        "paper_fig1_comparison", "paper_fig2_overlay", "paper_fig3_errors",
+                        "paper_fig4_detailed", "cell_count_comparison"}
+            want = ({f"enhanced_unet_{b}.{e}" for b in expected for e in ("png", "svg")}
+                    | {"enhanced_unet_cell_count_comparison.csv",
+                       "enhanced_unet_results.json"})
+            check(set(written) == want and all(
+                os.path.getsize(os.path.join(save_dir, f)) > 0 for f in written),
+                f"evaluate_model wrote the figure suite ({sorted(want - set(written))} "
+                f"missing, {sorted(set(written) - want)} extra)")
+
+        # predict_model over the test split: batched at 640, tiled at full
+        # resolution.  Phase 7's three epochs may leave the cascade deciding
+        # background everywhere, which would make the count check below
+        # vacuous, so predict_model serves phase 4's seeded weights (output
+        # convs scaled), which decide cells, from a checkpoint of their own
+        served_ckpt = os.path.join(tmp, "serving_model")
+        save_checkpoint(served_ckpt, create_train_state(serving_model(device=dev), cfg, 1,
+                                                        device=dev),
+                        0, 0.0, float("inf"), {})
+        test_dir = os.path.join(tmp, "test_images")
+        os.makedirs(test_dir)
+        names = CellDataset(data_dir, "test").files
+        for name in names:
+            os.link(os.path.join(data_dir, name), os.path.join(test_dir, name))
+        real_one, real_many = Evaluator.predict_semantic_mask, Evaluator.predict_semantic_masks
+        real_build, real_load = api._build_state, api.load_checkpoint
+        spent = {}
+
+        def timed(key, fn):
+            def run(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                spent[key] = spent.get(key, 0.0) + time.perf_counter() - t0
+                return out
+            return run
+
+        modes = {"batched": dict(max_size=ENTRY_MAX_SIZE),
+                 "tiled": dict(max_size=TILED_SIZE, tiled=True, tile=TILE, overlap=TILE_OVERLAP)}
+        for mode, kw in modes.items():
+            per_call = len(names) if mode == "batched" else 1
+            timer, served, totals = StepTimer(warmup=len(names) // per_call), [], []
+            # batched: one more run, its one chunk under trace_context, untimed
+            traced = [False]
+
+            def one(self, img):
+                timer.start()
+                mask = real_one(self, img)
+                timer.stop()
+                served.append(mask)
+                return mask
+
+            def many(self, imgs):
+                if traced[0]:
+                    with trace_context(os.path.join(tmp, "trace")):
+                        masks = real_many(self, imgs)
+                else:
+                    timer.start()
+                    masks = real_many(self, imgs)
+                    timer.stop()
+                served.extend(masks)
+                return masks
+
+            Evaluator.predict_semantic_mask, Evaluator.predict_semantic_masks = one, many
+            api._build_state = timed("model build", real_build)
+            api.load_checkpoint = timed("checkpoint load", real_load)
+            try:
+                for run in range(PREDICT_RUNS + (mode == "batched")):
+                    traced[0] = run == PREDICT_RUNS
+                    served.clear()
+                    spent.clear()
+                    reset(counters)
+                    torch.cuda.reset_peak_memory_stats()
+                    t0 = time.perf_counter()
+                    out = api.predict_model("enhanced_unet", test_dir, served_ckpt,
+                                            results_dir=os.path.join(tmp, f"predict_{mode}"),
+                                            log=lambda *a: None, **kw)
+                    if not traced[0]:
+                        totals.append(1e3 * (time.perf_counter() - t0) / len(names))
+                        peak = torch.cuda.max_memory_allocated()
+                        parts = dict(spent)
+                    got = k1_k2(f"predict_model ({mode})")
+            finally:
+                Evaluator.predict_semantic_mask, Evaluator.predict_semantic_masks = (real_one,
+                                                                                     real_many)
+                api._build_state, api.load_checkpoint = real_build, real_load
+            shape = snap_to_multiple(*MICROGRAPH_HW, kw["max_size"])
+            rows = out["predictions"]
+            counts = [semantic_to_instances(m)[1] for m in served]
+            summary = timer.summary(items_per_step=per_call)
+            print(f"[{card}] predict_model {mode} ({len(names)} test micrographs -> "
+                  f"{shape[1]} x {shape[0]}" + (f", tile {TILE} overlap {TILE_OVERLAP}"
+                                                 if mode == "tiled" else ", one chunk")
+                  + f"): serving {1e3 / summary['items_per_sec']:.1f} ms per image "
+                  f"(StepTimer, {summary['steps']} warm calls), whole call "
+                  f"{[round(v, 1) for v in totals]} ms per image (of the last call, for all "
+                  f"{len(names)} images: "
+                  + ", ".join(f"{k} {1e3 * v:.1f} ms" for k, v in parts.items())
+                  + "; the rest serving, decode, instances and PNGs), peak memory "
+                  f"{peak} bytes; launches "
+                  f"{json.dumps(got)}; rows {json.dumps(rows)}")
+            check([r["filename"] for r in rows] == names and len(served) == len(names),
+                  f"predict_model ({mode}) gives a row and a mask for each image")
+            check(all(m.shape == shape for m in served), f"predict_model ({mode}) at {shape}")
+            check(sorted(os.listdir(out["save_dir"])) == sorted(
+                [f"{os.path.splitext(n)[0]}_{k}.png" for n in names for k in ("mask", "overlay")]
+                + ["predictions.csv"]), f"predict_model ({mode}) wrote two PNGs an image")
+            check(sum(r["total_count"] for r in rows) > 0,
+                  f"predict_model ({mode}) found cells")
+            check(all(r["live_count"] == sum(1 for c in lab if c == 0)
+                      and r["dead_count"] == sum(1 for c in lab if c == 1)
+                      and r["live_pixels"] == int((m == 1).sum())
+                      for r, lab, m in zip(rows, counts, served)),
+                  f"predict_model ({mode}) counts are those of the card's masks")
+        trace = os.path.join(tmp, "trace", "trace.json")
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        print(f"[{card}] trace_context around one predict_model chunk: {trace} "
+              f"{os.path.getsize(trace)} bytes, {len(events)} events, {kernels} kernel events")
+        check(kernels > 0, "the chunk's trace holds the card's kernels")
+
+        # visualize_model: the history, the saved results, the figures again
+        if figures:
+            reset(counters)
+            t0 = time.perf_counter()
+            again = api.visualize_model("enhanced_unet", data_dir, checkpoint_path=best,
+                                        results_dir=results_dir, regenerate_predictions=True,
+                                        max_size=ENTRY_MAX_SIZE, log=lambda *a: None)
+            vis_launches = k1_k2("visualize_model")
+            print(f"[{card}] visualize_model(regenerate_predictions=True): "
+                  f"{time.perf_counter() - t0:.3f} s; launches {json.dumps(vis_launches)}")
+            check(again == results, "visualize_model returns the saved results")
+            check(os.path.exists(os.path.join(save_dir,
+                                              "enhanced_unet_training_history.csv")),
+                  "visualize_model wrote the history CSV")
+    finally:
+        conv_fused.fused_conv3x3_bn_relu_plain, mbconv.mbconv_infer_nchw_plain = real_plain
+
+    # ImageNet encoders into the full-width flagship on the card
+    weights = os.path.join(tmp, "weights")
+    os.makedirs(weights)
+    state = api._build_state("enhanced_unet", cfg, 1, torch.bfloat16, dev)
+    before = {k: v.cpu().clone() for k, v in state.model.state_dict().items()}
+    t0 = time.perf_counter()
+    files = effnet_files(state.model, weights, 17)
+    write_s = time.perf_counter() - t0
+    try:
+        pretrained.initialize_pretrained(state, "enhanced_unet", weights_dir=weights,
+                                         log=lambda *a: None)
+        refused = False
+    except ValueError as err:
+        refused = "SHA256" in str(err)
+    unchanged = all(torch.equal(v.cpu(), before[k])
+                    for k, v in state.model.state_dict().items())
+    check(refused and unchanged, "verify=True refuses the manifest-named files, writes nothing")
+    manifest = {v: dict(e, file=files[v][1], sha256_prefix=files[v][1][-12:-4])
+                if v in files else e for v, e in pretrained.WEIGHT_MANIFEST.items()}
+    real_manifest, pretrained.WEIGHT_MANIFEST = pretrained.WEIGHT_MANIFEST, manifest
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, imported = pretrained.initialize_pretrained(state, "enhanced_unet",
+                                                       weights_dir=weights, log=lambda *a: None)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        pretrained.WEIGHT_MANIFEST = real_manifest
+    after = state.model.state_dict()
+    n_enc = exact = other = 0
+    for k, v in after.items():
+        prefix = next((p for p in ("unetpp.encoder.", "deeplab.encoder.") if k.startswith(p)),
+                      None)
+        if prefix is None:
+            other += torch.equal(v.cpu(), before[k])
+            continue
+        variant = "efficientnet-b5" if prefix.startswith("unetpp") else "efficientnet-b4"
+        n_enc += 1
+        exact += torch.equal(v.cpu(), files[variant][0][k[len(prefix):]].to(v.dtype))
+    print(f"[{card}] initialize_pretrained into the full-width flagship on the card: files "
+          f"{[files[v][1] for v in files]} written in {write_s:.1f} s, verified and loaded in "
+          f"{load_s:.2f} s; {exact} of {n_enc} encoder tensors equal the files', {other} of "
+          f"{len(after) - n_enc} other tensors unchanged; imported {imported}")
+    check(imported == ["efficientnet-b5", "efficientnet-b4"], "both encoders imported")
+    check(exact == n_enc and other == len(after) - n_enc,
+          "every encoder tensor equals its file's and every other tensor is unchanged")
+    del state, before, after, files
     torch.cuda.empty_cache()
 
 

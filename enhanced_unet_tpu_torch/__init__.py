@@ -7,4 +7,4 @@ two packages can be held against each other on the same inputs.
 """
 
 __all__ = ["config", "device", "models", "ops", "train", "convert", "data", "metrics",
-           "postprocess", "native"]
+           "postprocess", "native", "viz", "utils"]

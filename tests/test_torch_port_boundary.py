@@ -11,9 +11,12 @@
 - The port imports no `cv2`: neither the probe nor any `import` statement
   loads it (the dataset computes OpenCV's polygons and resizes itself).
   Importing the port loads no Pillow either: the dataset imports it when
-  it reads its first image.
+  it reads its first image; nor matplotlib, which the first `Visualizer`
+  imports.
 - With no card, the entry points refuse to run instead of using the CPU
-  (`optimizer_state_from_jax` too, whose default was the CPU); a kernel
+  (`optimizer_state_from_jax` too, whose default was the CPU; and
+  `evaluate_model`, `predict_model`, `train_and_evaluate` and
+  `visualize_model` when it serves predictions), writing nothing; a kernel
   wrapper runs its plain version only for a CPU tensor, and a missing
   `nvcc` raises.
 - The port's presets equal the JAX package's, field for field.
@@ -32,6 +35,7 @@ from enhanced_unet_tpu import config as jconfig
 from enhanced_unet_tpu_torch import config
 from enhanced_unet_tpu_torch.data import BatchLoader, CellDataset
 from enhanced_unet_tpu_torch.models import EnhancedUNet, get_model
+from enhanced_unet_tpu_torch.train import api
 from enhanced_unet_tpu_torch.train.api import train_model
 from enhanced_unet_tpu_torch.train.evaluator import Evaluator
 
@@ -47,7 +51,7 @@ walked = [m.name for m in pkgutil.walk_packages(enhanced_unet_tpu_torch.__path__
 for name in walked:
     importlib.import_module(name)
 loaded = set(sys.modules) - before
-for pkg in ("jax", "jaxlib", "flax", "enhanced_unet_tpu", "cv2", "PIL"):
+for pkg in ("jax", "jaxlib", "flax", "enhanced_unet_tpu", "cv2", "PIL", "matplotlib"):
     bad = sorted(m for m in loaded if m == pkg or m.startswith(pkg + "."))
     assert not bad, bad
 for name in ("enhanced_unet_tpu_torch.ops.kernels.mbconv",
@@ -57,7 +61,10 @@ for name in ("enhanced_unet_tpu_torch.ops.kernels.mbconv",
              "enhanced_unet_tpu_torch.native", "enhanced_unet_tpu_torch.ops.tiling",
              "enhanced_unet_tpu_torch.ops.preprocess", "enhanced_unet_tpu_torch.ops.augment",
              "enhanced_unet_tpu_torch.data.dataset", "enhanced_unet_tpu_torch.data.loader",
-             "enhanced_unet_tpu_torch.train.checkpoint", "enhanced_unet_tpu_torch.train.api"):
+             "enhanced_unet_tpu_torch.train.checkpoint", "enhanced_unet_tpu_torch.train.api",
+             "enhanced_unet_tpu_torch.viz.visualizer", "enhanced_unet_tpu_torch.utils.profiler",
+             "enhanced_unet_tpu_torch.convert.pretrained",
+             "enhanced_unet_tpu_torch.convert.torch_import"):
     assert name in walked and name in loaded, name
 print("BOUNDARY OK", len(walked))
 """
@@ -152,6 +159,25 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
         train_model("enhanced_unet", data_dir=str(tmp_path),
                     checkpoint_dir=str(tmp_path / "ck"))
     assert not os.path.exists(tmp_path / "ck")
+
+
+@pytest.mark.parametrize("entry", ["evaluate_model", "predict_model", "visualize_model",
+                                   "train_and_evaluate"])
+def test_user_entry_points_raise_without_a_card(monkeypatch, tmp_path, entry):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "images").mkdir()
+    (tmp_path / "images" / "a.png").write_bytes(b"")
+    call = {
+        "evaluate_model": lambda: api.evaluate_model("enhanced_unet", str(tmp_path)),
+        "predict_model": lambda: api.predict_model("enhanced_unet", str(tmp_path / "images")),
+        "visualize_model": lambda: api.visualize_model("enhanced_unet", str(tmp_path),
+                                                       regenerate_predictions=True),
+        "train_and_evaluate": lambda: api.train_and_evaluate("enhanced_unet", str(tmp_path)),
+    }[entry]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()
+    assert sorted(os.listdir(tmp_path)) == ["images"]
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -820,3 +820,68 @@ def test_train_model_one_epoch_on_card(cuda, tmp_path, monkeypatch):
     assert len(history["val_miou"]) == 1 and os.path.exists(os.path.join(best, "state.pt"))
     saved = torch.load(os.path.join(last, "state.pt"), map_location="cpu", weights_only=True)
     assert saved["step"] == 2      # 4 train images, batch 2
+
+
+def _entry_setup(tmp_path, monkeypatch):
+    """The tiny flagship behind `train.api.get_model`, and seven small
+    seeded micrographs (train 4, val 1, test 2)."""
+    import chip_smoke
+    from enhanced_unet_tpu_torch import models
+    from enhanced_unet_tpu_torch.train import api
+
+    real = models.get_model
+    monkeypatch.setattr(api, "get_model", lambda name, **kw: real(
+        name, encoder_names=("efficientnet-tiny", "efficientnet-tiny"), **kw))
+    monkeypatch.setattr(chip_smoke, "MICROGRAPH_HW", (200, 272))
+    monkeypatch.setattr(chip_smoke, "CELLS", 8)
+    data = tmp_path / "data"
+    data.mkdir()
+    chip_smoke.write_micrographs(str(data), 7, 6)
+    return api, data
+
+
+def _launches():
+    from enhanced_unet_tpu_torch.ops.kernels import conv_fused, mbconv
+
+    return sum(mbconv.LAUNCHES.values()), sum(conv_fused.LAUNCHES.values())
+
+
+def test_evaluate_model_on_card_launches_k1_and_k2(cuda, tmp_path, monkeypatch):
+    import json
+    import math
+    import os
+
+    from enhanced_unet_tpu_torch.train.evaluator import _METRIC_KEYS
+
+    api, data = _entry_setup(tmp_path, monkeypatch)
+    before = _launches()
+    out = api.evaluate_model("enhanced_unet", str(data), str(tmp_path / "none"),
+                             results_dir=str(tmp_path / "results"), max_size=128,
+                             generate_visualizations=False, log=lambda *a: None)
+    after = _launches()
+    assert after[0] > before[0] and after[1] > before[1]
+    assert set(out) == set(_METRIC_KEYS) and all(math.isfinite(v) for v in out.values())
+    with open(os.path.join(tmp_path, "results", "enhanced_unet",
+                           "enhanced_unet_results.json")) as f:
+        assert json.load(f) == out
+
+
+@pytest.mark.parametrize("tiled", [False, True])
+def test_predict_model_on_card_launches_k1_and_k2(cuda, tmp_path, monkeypatch, tiled):
+    import os
+
+    api, data = _entry_setup(tmp_path, monkeypatch)
+    images = tmp_path / "images"
+    images.mkdir()
+    for name in sorted(os.listdir(data))[:3]:
+        if name.endswith(".jpg"):
+            os.link(data / name, images / name)
+    before = _launches()
+    out = api.predict_model("enhanced_unet", str(images), str(tmp_path / "none"),
+                            results_dir=str(tmp_path / "results"), max_size=128, tiled=tiled,
+                            tile=64, overlap=16, log=lambda *a: None)
+    after = _launches()
+    assert after[0] > before[0] and after[1] > before[1]
+    rows = out["predictions"]
+    assert [r["filename"] for r in rows] == sorted(os.listdir(images))
+    assert len(os.listdir(out["save_dir"])) == 2 * len(rows) + 1

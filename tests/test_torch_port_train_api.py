@@ -7,8 +7,9 @@
   monkeypatching `train.api.get_model`; a synthetic 96^2 dataset) writes
   the gate's checkpoints with JAX's history keys and finite gradient
   magnitudes, resumes where it stopped and skips training when asked,
-  as `tests/test_e2e.py` holds the JAX package's; the arguments it does not
-  serve yet raise.
+  as `tests/test_e2e.py` holds the JAX package's; training over more than
+  one device, not served yet, raises (`pretrained_dir` is held in
+  `tests/test_torch_port_api_train.py`).
 - `quick_val_miou` equals the JAX package's within 1e-4 on the same
   weights (a JAX tree carried into the port by `convert/jax_params.py`)
   and the same batches.
@@ -191,8 +192,7 @@ def test_train_model_skips_training(data_dir, tmp_path, tiny_models):
     assert os.path.getmtime(os.path.join(p2, "meta.json")) == mtime
 
 
-@pytest.mark.parametrize("kw,item", [({"num_devices": 2}, "item 5"),
-                                     ({"pretrained_dir": "weights"}, "item 2")])
+@pytest.mark.parametrize("kw,item", [({"num_devices": 2}, "item 5")])
 def test_train_model_refuses_what_it_does_not_serve(data_dir, tmp_path, kw, item):
     with pytest.raises(NotImplementedError, match=item):
         _run(data_dir, str(tmp_path), epochs=1, every=1, **kw)
