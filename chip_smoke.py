@@ -44,14 +44,15 @@ Phases (any failure exits non-zero):
     count set to 0 before it; the serving kernels' counts (K2's wgmma and
     small-Cin variants, K1's two `nhwc` passes) must move and every other
     count (K1's `nhwc_expand` and `nchw` kernels among them: the bf16
-    request launches no `nchw` kernel) must not; the first request
-    records each shape K2 and K1 are called at, and no request after it may
-    pack a conv's weights or fold an MBConv block's again; every K1 input
-    must come channels_last with its folded weights already on the card; a
-    profile;
+    request launches no `nchw` kernel) must not, and K2's plain version
+    must not run; every logit finite; the first request records each shape
+    K2 and K1 are called at, and no request after it may pack a conv's
+    weights or fold an MBConv block's again; every K1 input must come
+    channels_last with its folded weights already on the card; a profile
+    (phases 4, 4e and 9 serve through one counted run, `serve_counted`);
  4b. K2 at every recorded serving shape (66: 22 per forward, three TTA
     forwards): checked against its plain version, timed (20 calls) beside
-    the plain version, the `mma.sync` kernel, cuDNN + a torch epilogue and
+    the plain version (unheld), the `mma.sync` kernel, cuDNN + a torch epilogue and
     cuDNN's channels_last conv alone, and summed over one request
     (launches x time) beside the same sum of its bounds and the profiled
     K2 group (`--k2-json PATH` also writes these rows to PATH);
@@ -72,7 +73,7 @@ Phases (any failure exits non-zero):
  4e. tiled serving at full width: the same model served by an `Evaluator`
     with `tiled=True` (tile 512, overlap 64, TTA, the whole grid in one
     chunk) on one seeded 2048x2048 micrograph, three requests, every count
-    set to 0 before each: a [2048,2048] uint8 mask with at least two
+    set to 0 before the first and read after each: a [2048,2048] uint8 mask with at least two
     classes; the 25 tiles in three forwards (the 75-tile trio, 25 at 384^2,
     25 at 640^2); K2's wgmma/small-Cin and K1's `nhwc` counts move, no
     other; no pack or fold after the first request; wall ms, CUDA-event
@@ -156,9 +157,32 @@ Phases (any failure exits non-zero):
     file's, every other tensor is unchanged.  Without matplotlib the phase
     says so on a line of its own and runs `evaluate_model` without
     figures and no `visualize_model`;
- 8. a `{"kernels": [...]}` line, each entry's launches counted in the run
+ 9. the rest of the zoo, inside phase 7's temporary directory: each of
+    segnet, unet (ResNet-50), unet_basic, enhanced_unet_basic, fcn (FPN
+    over ResNet-18), fcn_basic, pspnet (ResNet-34), pspnet_basic, linknet
+    (ResNet-18) and linknet_basic at full width, bf16, seeded weights:
+    an `Evaluator` with the preset's TTA (enhanced_unet_basic's only)
+    serves phase 4's three requests of two 512^2 images, every count set
+    to 0 before the first: [2,512,512] masks in {0,1,2}, every logit
+    finite, K2 launches per request as each flax tree has them (wgmma, and
+    small-Cin where the first 3x3 conv takes 3 channels), no other kernel,
+    no plain version of K2, no pack after the first request; warm wall ms,
+    CUDA-event span and peak memory; one 256^2 image bf16 on the card
+    against fp32 on the CPU (5e-2 of max |logit|, each pixel's class the
+    same on 99% of pixels; for SegNet the logits are held against the CPU
+    replaying the card's pool indices, and each pool's share of windows
+    the CPU decides otherwise must stay under 5%); one warm and two timed
+    train steps at 2 x 256^2 (finite losses, every parameter and running
+    statistic changed, no K1 or K2 launch).  Then K2 at every zoo shape
+    phase 4 did not give it, checked and timed as in 4b, and summed over
+    each model's request; and unet through the entry points on
+    phase 7's folder: `train_model` for one epoch with the full-Evaluator
+    gate (K2 launched), `predict_model` batched on its `best_model` (a row
+    per micrograph, K2 launched, no plain version);
+10. a `{"kernels": [...]}` line, each entry's launches counted in the run
     whose time and shape it reports (the serving kernels' also per tiled
-    request, `tiled_launches`), the card line, and the final JSON line.
+    request, `tiled_launches`; K2's also per zoo request, `zoo_launches`),
+    the card line, and the final JSON line.
 
 It needs no network and builds into `build/kernels/`.
 """
@@ -523,10 +547,12 @@ def host_ms_per_item(ds) -> dict:
     return ms
 
 
-def phase7_training_entry(card: str, counters, dev) -> None:
+def phase7_training_entry(card: str, counters, dev, after=None):
     """7. The training entry point on the card: `train_model` from a folder
     of micrographs, its gate, resume, the device pipeline against the CPU,
-    and the step with and without prefetch (see the module docstring)."""
+    and the step with and without prefetch (see the module docstring); then
+    7b, and `after(tmp, data_dir)` inside the same temporary directory,
+    whose result it returns."""
     import dataclasses
     import os
     import tempfile
@@ -734,7 +760,9 @@ def phase7_training_entry(card: str, counters, dev) -> None:
                     TRAIN_GROUPS)
         del state, loaders
         phase7b_entry_points(card, counters, dev, tmp, data_dir, best)
+        out = None if after is None else after(tmp, data_dir)
     torch.cuda.empty_cache()
+    return out
 
 
 PREDICT_RUNS = 2                  # phase 7b: timed predict_model runs a mode, the first warm
@@ -1066,6 +1094,365 @@ def phase7b_entry_points(card: str, counters, dev, tmp: str, data_dir: str, best
     torch.cuda.empty_cache()
 
 
+def serve_counted(evaluator, requests, counters, what: str, serve=None) -> dict:
+    """Serves `requests` (arrays in [0, 1], [..., H, W, 3]) through `serve`
+    (`evaluator.predict_semantic_masks` by default), every count set to 0
+    before the first, and checks what every serving run must hold: integer
+    masks [..., H, W] in {0,1,2}, every logit finite, no plain version of
+    K2 run, no K2 weight pack or K1 fold after the first request, and every
+    K2 and K1 launch one that the first request recorded.  The first
+    request records each shape K2 is called at, and each K1 call with one
+    block's folded weights and whether its input came channels_last and its
+    folded weights sat on the card in the kernel's dtype (so the wrapper
+    copies nothing).  Returns those records, per request the packs, folds,
+    forward input shapes, wall and CUDA-event span ms, masks and launches
+    (`runs`), and the run's launches and peak memory."""
+    import numpy as np
+    import torch
+
+    from enhanced_unet_tpu_torch.models import blocks, encoders
+    from enhanced_unet_tpu_torch.ops.kernels import conv_fused
+
+    k2_entry, pack = blocks.fused_conv3x3_bn_relu_packed, blocks.pack_conv3x3
+    k1_entry, fold = encoders.mbconv_infer_nchw, encoders.fold_mbconv_weights
+    k2_plain, apply = conv_fused.fused_conv3x3_bn_relu_plain, evaluator._apply
+    serve = serve or evaluator.predict_semantic_masks
+    k2_calls, k1_calls, k1_inputs = {}, {}, set()
+    packs, folds, forwards, finite, plain = [], [], [], [], [0]
+
+    def recording_k2(x, packed, relu=True):
+        key = (tuple(x.shape) + (packed.cout,), relu)
+        k2_calls[key] = k2_calls.get(key, 0) + 1
+        return k2_entry(x, packed, relu)
+
+    def recording_k1(x, p, residual):
+        key = (tuple(x.shape), p.wproj.shape[1], residual)
+        k1_calls.setdefault(key, [0, p])[0] += 1
+        k1_inputs.add((x.is_contiguous(memory_format=torch.channels_last),
+                       p.wdw.dtype == x.dtype and all(
+                           t.device == x.device and t.is_contiguous()
+                           for t in (p.wdw, p.bdw, p.bproj))))
+        return k1_entry(x, p, residual=residual)
+
+    def counting_pack(*args):
+        packs[-1] += 1
+        return pack(*args)
+
+    def counting_fold(*args, **kwargs):
+        folds[-1] += 1
+        return fold(*args, **kwargs)
+
+    def counted_plain(*args, **kwargs):
+        plain[0] += 1
+        return k2_plain(*args, **kwargs)
+
+    def checked_apply(x):
+        out = apply(x)
+        forwards[-1].append(tuple(x.shape))
+        finite.append(torch.isfinite(out).all())
+        return out
+
+    blocks.pack_conv3x3, encoders.fold_mbconv_weights = counting_pack, counting_fold
+    conv_fused.fused_conv3x3_bn_relu_plain, evaluator._apply = counted_plain, checked_apply
+    walls, spans, masks, runs = [], [], [], []
+    try:
+        reset(counters)
+        torch.cuda.reset_peak_memory_stats()
+        for i, imgs in enumerate(requests):
+            blocks.fused_conv3x3_bn_relu_packed = recording_k2 if i == 0 else k2_entry
+            encoders.mbconv_infer_nchw = recording_k1 if i == 0 else k1_entry
+            packs.append(0)
+            folds.append(0)
+            forwards.append([])
+            before = {k: v for c in counters for k, v in c.items()}
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            out = serve(imgs)
+            end.record()
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+            spans.append(start.elapsed_time(end))
+            runs.append({k: v - before[k] for c in counters for k, v in c.items()})
+            check(out.shape == imgs.shape[:-1] and out.dtype.kind in "iu",
+                  f"{what}: masks {out.shape} {out.dtype}")
+            check(set(np.unique(out).tolist()) <= {0, 1, 2},
+                  f"{what}: mask values outside {{0, 1, 2}}")
+            masks.append(out)
+    finally:
+        blocks.fused_conv3x3_bn_relu_packed, blocks.pack_conv3x3 = k2_entry, pack
+        encoders.mbconv_infer_nchw, encoders.fold_mbconv_weights = k1_entry, fold
+        conv_fused.fused_conv3x3_bn_relu_plain, evaluator._apply = k2_plain, apply
+    launches = {k: v for c in counters for k, v in c.items()}
+    check(finite and all(bool(f) for f in finite), f"{what}: every logit finite")
+    check(plain[0] == 0, f"{what} ran no plain version of K2 ({plain[0]} calls)")
+    check(not any(packs[1:]) and not any(folds[1:]),
+          f"{what}: no K2 pack or K1 fold after the first request: {packs}, {folds}")
+    check(sum(k2_calls.values()) * len(requests) == sum(conv_fused.LAUNCHES.values()),
+          f"{what}: the recorded K2 calls are the serving run's")
+    k1_per_request = sum(c for c, _ in k1_calls.values())
+    check(launches["mbconv_nhwc_pass1"] == launches["mbconv_nhwc_pass2"]
+          == k1_per_request * len(requests), f"{what}: the recorded K1 calls are the serving run's")
+    return dict(k2_calls=k2_calls, k1_calls=k1_calls, k1_inputs=k1_inputs, packs=packs,
+                folds=folds, forwards=forwards, wall_ms=walls, span_ms=spans, masks=masks,
+                runs=runs, launches=launches, peak=torch.cuda.max_memory_allocated())
+
+
+def print_k2(r: dict, prefix: str = "") -> None:
+    """One line of a `k2_row` row."""
+    mma = "" if r["mma_ms"] is None else f", mma.sync kernel {r['mma_ms']:.4f} ms"
+    if r["tile"]:
+        mma += f"; tile {r['tile']}, {r['l2_read_bytes'] / 1e6:.1f} MB read from L2"
+    print(f"{prefix}K2 {r['variant']} {r['shape']}: rel err {r['rel_err']:.3e} (tol 2e-2); "
+          f"kernel {r['ms']:.4f} ms (unheld {r['wall_ms']:.4f}){mma}, plain (unheld) "
+          f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f} (conv alone "
+          f"{r['library_conv_ms']:.4f}), bound {r['bound_ms']:.4f} ({r['bound_by']})")
+
+
+ZOO = ("segnet", "unet", "unet_basic", "enhanced_unet_basic", "fcn", "fcn_basic",
+       "pspnet", "pspnet_basic", "linknet", "linknet_basic")
+# K2 launches a forward (the 3x3 stride-1 ConvBNActs of each flax tree, the
+# stride-2 first blocks of ResNet stages 2-4 left out), and whether the
+# first of them takes 3 channels (the small-Cin kernel)
+ZOO_K2 = {"segnet": 15, "unet": 23, "unet_basic": 14, "enhanced_unet_basic": 15,
+          "fcn": 18, "fcn_basic": 8, "pspnet": 24, "pspnet_basic": 4, "linknet": 7,
+          "linknet_basic": 5}
+ZOO_SMALLC = {"segnet": 1, "unet": 0, "unet_basic": 1, "enhanced_unet_basic": 2,
+              "fcn": 0, "fcn_basic": 1, "pspnet": 0, "pspnet_basic": 1, "linknet": 0,
+              "linknet_basic": 1}
+ZOO_TRAIN_SIZE = 256              # phase 9's train steps: 2 x 256^2 (6a covers 640^2)
+# phase 9's cross-check: the least share of pixels whose class (largest
+# logit) the bf16 card and the fp32 CPU agree on, and the largest share of
+# a SegNet pool's windows whose argmax the fp32 CPU decides otherwise; set
+# from phase 9's readings on the H100 (PERF.md, section 6)
+ZOO_AGREE, ZOO_POOL_FLIPS = 0.99, 0.05
+
+
+def phase9_zoo(card: str, counters, dev, tmp: str, data_dir: str, k2_row, covered) -> dict:
+    """9. The rest of the zoo on the card (see the module docstring).
+    `k2_row` times K2 at a shape; `covered` holds phase 4's K2 shapes.
+    Returns {model: {K2 entry: launches per request}}."""
+    import dataclasses
+    import os
+
+    import torch
+
+    from enhanced_unet_tpu_torch.config import get_preset
+    from enhanced_unet_tpu_torch.data.dataset import CellDataset
+    from enhanced_unet_tpu_torch.models import get_model
+    from enhanced_unet_tpu_torch.models import segnet as segnet_module
+    from enhanced_unet_tpu_torch.ops.kernels import conv_fused
+    from enhanced_unet_tpu_torch.train import api
+    from enhanced_unet_tpu_torch.train.evaluator import Evaluator
+    from enhanced_unet_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    requests = [synthetic_images(2, 512, seed) for seed in range(3)]    # phase 4's
+    x_cross = torch.from_numpy(synthetic_images(1, 256, 7)) - 0.5       # phase 5's
+    imgs, masks, valid = (torch.from_numpy(a).to(dev)
+                          for a in blob_batch(2, ZOO_TRAIN_SIZE, ZOO_TRAIN_SIZE, 13))
+    real_plain = conv_fused.fused_conv3x3_bn_relu_plain
+    plain = [0]
+
+    def counted_plain(*a, **kw):
+        plain[0] += 1
+        return real_plain(*a, **kw)
+
+    zoo_launches, shapes = {}, {}
+    for name in ZOO:
+        torch.cuda.empty_cache()
+        cfg = get_preset(name)
+        t0 = time.perf_counter()
+        model = get_model(name, seed=0)                  # device None: the card
+        build_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        ev = Evaluator(model, name, enable_tta=cfg.enable_tta, verbose=False)
+        forwards = 3 if cfg.enable_tta else 1
+        served = serve_counted(ev, requests, counters, name)
+        launches, walls, spans = served["launches"], served["wall_ms"], served["span_ms"]
+        k2 = {k: launches[k] // len(requests) for k in conv_fused.LAUNCHES}
+        zoo_launches[name] = k2
+        print(f"[{card}] zoo {name} bf16, {n_params} parameters (built in {build_s:.2f} s), "
+              f"{'TTA' if cfg.enable_tta else 'no TTA'}: 3 requests of 2 x 512^2, wall ms "
+              f"{[round(v, 1) for v in walls]}, CUDA-event span ms "
+              f"{[round(v, 1) for v in spans]}, peak memory {served['peak']} bytes, K2 launches "
+              f"per request {json.dumps({k: v for k, v in k2.items() if v})}, packs per "
+              f"request {served['packs']}, forwards {served['forwards'][-1]}")
+        check(all(len(f) == forwards for f in served["forwards"]),
+              f"{name}: {forwards} forwards a request")
+        check(served["packs"][0] > 0, f"{name}: K2 weight packs on the first request")
+        check(k2["conv3x3_bn_act_wgmma"] > 0, f"{name} launched K2's wgmma kernel")
+        check(k2["conv3x3_bn_act_smallc"] == ZOO_SMALLC[name] * forwards,
+              f"{name}: small-Cin launches {k2['conv3x3_bn_act_smallc']}")
+        check(k2["conv3x3_bn_act_wgmma"] + k2["conv3x3_bn_act_smallc"]
+              == ZOO_K2[name] * forwards, f"{name}: K2 launches per request {k2}")
+        others = {k: v for k, v in launches.items()
+                  if v and k not in ("conv3x3_bn_act_wgmma", "conv3x3_bn_act_smallc")}
+        check(not others, f"{name} launched no other kernel ({others})")
+        for key, count in served["k2_calls"].items():
+            shapes.setdefault(key, {})[name] = count
+
+        # cross-check: one 256^2 image, bf16 on the card against fp32 on the
+        # CPU through the plain path, the same weights: the logits within
+        # 5e-2 of max |logit| and the class of each pixel's largest logit
+        # the same on ZOO_AGREE of the pixels.  SegNet's pools are
+        # decisions: a bf16 rounding can move a window's argmax, and the
+        # unpool then carries the value to another pixel.  So for SegNet the
+        # logits are held against a second CPU forward that replays the
+        # card's pool indices (the arithmetic alone), each pool's share of
+        # windows that the fp32 CPU decides otherwise is held under
+        # ZOO_POOL_FLIPS (wrong or garbage indices on the card move far
+        # more), and the classes against the CPU's own decisions
+        pools, flips = [], []
+        real_pool = segnet_module.max_pool_with_indices
+
+        def recording_pool(x):
+            out = real_pool(x)
+            pools.append(out[1])
+            return out
+
+        def replaying_pool(x):
+            own, idx = real_pool(x)[1], pools[len(flips)].cpu()
+            flips.append((own != idx).float().mean().item())
+            n, c, h, w = x.shape
+            xr = x.reshape(n, c, h // 2, 2, w // 2, 2).permute(0, 1, 2, 4, 3, 5)
+            return xr.reshape(n, c, h // 2, w // 2, 4).gather(-1, idx[..., None])[..., 0], idx
+
+        with torch.no_grad():
+            segnet_module.max_pool_with_indices = recording_pool
+            try:
+                got, _ = model(x_cross.to(dev))
+            finally:
+                segnet_module.max_pool_with_indices = real_pool
+            got = got.float().cpu()
+            ref = get_model(name, dtype=torch.float32, device="cpu", seed=0)
+            t0 = time.perf_counter()
+            want, _ = ref(x_cross)
+            cpu_s = time.perf_counter() - t0
+            arith = want
+            if pools:
+                segnet_module.max_pool_with_indices = replaying_pool
+                try:
+                    arith, _ = ref(x_cross)
+                finally:
+                    segnet_module.max_pool_with_indices = real_pool
+        del ref
+        err = (got - arith).abs().max().item()
+        scale = arith.abs().max().item()
+        classes = want.argmax(-1)
+        agree = (got.argmax(-1) == classes).float().mean().item()
+        top = torch.bincount(classes.flatten(), minlength=want.shape[-1]).max().item()
+        print(f"[{card}] zoo {name} cross-check 256^2: bf16 card vs fp32 cpu max_abs_err "
+              f"{err:.4e}, max |logit| {scale:.4e}, ratio {err / scale:.4e} (tol 5e-2); "
+              f"classes agree on {agree:.5f} of pixels (tol {ZOO_AGREE}; the CPU's most "
+              f"common class on {top / classes.numel():.5f}); cpu forward {cpu_s:.2f} s"
+              + (f"; logits against the CPU replaying the card's {len(flips)} pools' indices, "
+                 f"shares the fp32 CPU decides otherwise {[round(f, 5) for f in flips]} "
+                 f"(tol {ZOO_POOL_FLIPS}), without the replay ratio "
+                 f"{(got - want).abs().max().item() / want.abs().max().item():.4e}"
+                 if flips else ""))
+        check(torch.isfinite(got).all().item(), f"{name}: finite cross-check logits")
+        check(err <= 5e-2 * scale, f"{name}: bf16 card within 5e-2 of max |logit|")
+        check(agree >= ZOO_AGREE, f"{name}: classes agree on {agree} of pixels")
+        check(len(flips) == len(pools) and all(f <= ZOO_POOL_FLIPS for f in flips),
+              f"{name}: pool index shares the CPU decides otherwise {flips}")
+
+        # train steps: 1 warm, 2 timed, on 2 x 256^2 blob micrographs
+        state = create_train_state(model, cfg, STEPS_PER_EPOCH)
+        step = make_train_step(cfg)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+        stats0 = {n: b.clone() for n, b in model.named_buffers() if "running" in n}
+        reset(counters)
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, losses = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, imgs, masks, valid, gen)
+            losses.append(m["loss"].item())
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+        train_peak = torch.cuda.max_memory_allocated()
+        train_launches = {k: v for c in counters for k, v in c.items() if v}
+        moved = all(not torch.equal(p, params0[n]) for n, p in model.named_parameters())
+        stats_moved = all(not torch.equal(b, stats0[n]) for n, b in model.named_buffers()
+                          if n in stats0)
+        print(f"[{card}] zoo {name} train steps (1 warm + 2) at 2 x {ZOO_TRAIN_SIZE}^2: wall ms "
+              f"{[round(v, 1) for v in step_ms]}, losses {[round(v, 4) for v in losses]}, "
+              f"peak memory {train_peak} bytes, launches {train_launches}")
+        check(all(math.isfinite(v) for v in losses), f"{name}: finite losses {losses}")
+        check(moved and stats_moved, f"{name}: every parameter and running statistic changed")
+        check(not train_launches, f"{name}: training launched no K1 or K2 kernel")
+        del model, ev, state, params0, stats0, got, want, arith
+
+    # K2 at the zoo's shapes that phase 4 did not give it
+    t0 = time.perf_counter()
+    rows = []
+    for (shape, relu), users in sorted(shapes.items()):
+        if (shape, relu) in covered:
+            continue
+        r = k2_row(shape[:5], relu)
+        r["users"] = users                       # model -> launches per request
+        rows.append(r)
+        print_k2(r, f"[{card}] zoo, relu={relu}, launches per request {users}: ")
+    check(rows and all(r["variant"] in ("wgmma", "smallc") for r in rows),
+          "every zoo shape reaches the wgmma or the small-Cin kernel")
+    for name in ZOO:
+        mine = [(r, r["users"][name]) for r in rows if name in r["users"]]
+        per = {k: sum(c * r[k] for r, c in mine)
+               for k in ("ms", "wall_ms", "bound_ms", "mma_ms", "library_ms",
+                         "library_conv_ms", "plain_ms")}
+        print(f"[{card}] K2 per request of {name} over its {len(mine)} shapes that phase 4 "
+              f"did not give (sum of launches x time): kernel {per['ms']:.4f} ms (unheld "
+              f"{per['wall_ms']:.4f}), bound {per['bound_ms']:.4f}, mma.sync kernel "
+              f"{per['mma_ms']:.4f}, cuDNN + epilogue {per['library_ms']:.4f}, cuDNN conv "
+              f"alone {per['library_conv_ms']:.4f}, plain {per['plain_ms']:.4f}")
+    print(f"[{card}] K2 at {len(rows)} zoo shapes: {time.perf_counter() - t0:.1f} s")
+
+    # the entry points for unet on phase 7's folder: train_model (1 epoch,
+    # the full-Evaluator gate), then predict_model batched on its best_model
+    cfg = dataclasses.replace(get_preset("unet", num_epochs=1, data_dir=data_dir),
+                              num_epochs=1, eval_every_epochs=1)
+    conv_fused.fused_conv3x3_bn_relu_plain = counted_plain
+    plain[0] = 0
+    try:
+        reset(counters)
+        t0 = time.perf_counter()
+        best = api.train_model("unet", data_dir, 1, checkpoint_dir=os.path.join(tmp, "zoo_ck"),
+                               max_size=ENTRY_MAX_SIZE, cfg=cfg, log=lambda *a: None)
+        train_s = time.perf_counter() - t0
+        gate = {k: v for k, v in conv_fused.LAUNCHES.items() if v}
+        check(gate.get("conv3x3_bn_act_wgmma", 0) > 0, f"unet's gate launched K2 ({gate})")
+        test_dir = os.path.join(tmp, "zoo_test_images")
+        os.makedirs(test_dir)
+        names = CellDataset(data_dir, "test").files
+        for n in names:
+            os.link(os.path.join(data_dir, n), os.path.join(test_dir, n))
+        reset(counters)
+        t0 = time.perf_counter()
+        out = api.predict_model("unet", test_dir, best,
+                                results_dir=os.path.join(tmp, "zoo_predict"),
+                                max_size=ENTRY_MAX_SIZE, log=lambda *a: None)
+        predict_s = time.perf_counter() - t0
+        pred = {k: v for c in counters for k, v in c.items() if v}
+    finally:
+        conv_fused.fused_conv3x3_bn_relu_plain = real_plain
+    rows_out = out["predictions"]
+    print(f"[{card}] zoo unet entry points on phase 7's folder: train_model 1 epoch + gate "
+          f"{train_s:.2f} s (gate launches {gate}); predict_model batched over "
+          f"{len(names)} micrographs {predict_s:.2f} s, launches {pred}, plain-version calls "
+          f"{plain[0]}; rows {json.dumps(rows_out)}")
+    check([r["filename"] for r in rows_out] == names, "predict_model wrote a row per micrograph")
+    check(pred.get("conv3x3_bn_act_wgmma", 0) > 0 and set(pred) <= {
+        "conv3x3_bn_act_wgmma", "conv3x3_bn_act_smallc"},
+        f"predict_model launched K2 and nothing else ({pred})")
+    check(plain[0] == 0, "the zoo's entry points ran no plain version of K2")
+    print(f"[{card}] phase 9 (the zoo): {time.perf_counter() - t_phase:.1f} s")
+    return zoo_launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1086,7 +1473,6 @@ def main(argv=None) -> int:
     from enhanced_unet_tpu_torch.benchmarks import dw_variants, mbconv_instr
     from enhanced_unet_tpu_torch.benchmarks import mbconv_proto as proto
     from enhanced_unet_tpu_torch.benchmarks.microtime import device_ms
-    from enhanced_unet_tpu_torch.models import blocks, encoders
     from enhanced_unet_tpu_torch.ops.kernels import KERNEL_SOURCES, build
     from enhanced_unet_tpu_torch.ops.kernels import conv_fused, depthwise, mbconv
     from enhanced_unet_tpu_torch.ops.kernels import copy as copy_k
@@ -1135,10 +1521,14 @@ def main(argv=None) -> int:
     def k2_row(shape, relu=True, iters=K2_ITERS):
         """K2 at one bf16 shape through the packed entry point: checked
         against its plain version (2e-2 of max |value|), then timed beside
-        the plain version, cuDNN + a torch epilogue (`library_ms`),
-        cuDNN's channels_last bf16 conv alone (`library_conv_ms`) and the
-        `mma.sync` kernel on the same packed weights (`mma_ms`); a wgmma
-        row also gives its tile and the bytes its tiles read from L2."""
+        the plain version, cuDNN + a torch epilogue (`library_ms`), cuDNN's
+        channels_last bf16 conv alone (`library_conv_ms`) and the `mma.sync`
+        kernel on the same packed weights (`mma_ms`); a wgmma row also gives
+        its tile and the bytes its tiles read from L2.  The plain version is
+        timed unheld, back to back: its fp32 cuDNN conv holds the host for
+        about 0.35 s a call at some shapes (Cin 256 -> 128 at 128^2 on
+        cuDNN 9.2), longer than any hold, and elsewhere its calls are long
+        enough that held and unheld agree."""
         n, h, w, cin, cout = shape
         x, wt, sc, sh, relu = args = conv_case(n, h, w, cin, cout, torch.bfloat16, relu)
         packed = conv_fused.pack_conv3x3(wt, sc, sh, x.dtype, dev)
@@ -1167,21 +1557,13 @@ def main(argv=None) -> int:
             tile=tile, l2_read_bytes=l2_read,
             max_abs_err=err, rel_err=rel, ms=device_ms(kernel, iters),
             wall_ms=device_ms(kernel, iters, held=False),
-            plain_ms=device_ms(lambda: conv_fused.fused_conv3x3_bn_relu_plain(*args), iters),
+            plain_ms=device_ms(lambda: conv_fused.fused_conv3x3_bn_relu_plain(*args), iters,
+                               held=False),
             bound_ms=b, bound_by=kind,
             library_ms=device_ms(lambda: conv_library(*args), iters),
             library_conv_ms=device_ms(lambda: F.conv2d(xl, wl, padding=1), iters),
             mma_ms=device_ms(lambda: conv_fused.launch("mma", x, packed, relu), iters)
             if packed.variant != "mma" else None)
-
-    def print_k2(r):
-        mma = "" if r["mma_ms"] is None else f", mma.sync kernel {r['mma_ms']:.4f} ms"
-        if r["tile"]:
-            mma += f"; tile {r['tile']}, {r['l2_read_bytes'] / 1e6:.1f} MB read from L2"
-        print(f"K2 {r['variant']} {r['shape']}: rel err {r['rel_err']:.3e} (tol 2e-2); "
-              f"kernel {r['ms']:.4f} ms (unheld {r['wall_ms']:.4f}){mma}, plain "
-              f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f} (conv alone "
-              f"{r['library_conv_ms']:.4f}), bound {r['bound_ms']:.4f} ({r['bound_by']})")
 
     k2_shapes = [  # (n, h, w, cin, cout): TTA trio of a 2-image 512^2 request
         (6, 512, 512, 6, 256), (6, 512, 512, 256, 128), (6, 512, 512, 128, 64),
@@ -1513,69 +1895,19 @@ def main(argv=None) -> int:
     evaluator = Evaluator(model, "enhanced_unet")
     check(evaluator.enable_tta, "the enhanced_unet preset serves with TTA")
     requests = [synthetic_images(2, 512, seed) for seed in range(3)]
-    # the first (cold) request records every shape K2 is called at; every
-    # request counts its weight packs (ConvBNAct packs once, then reuses)
-    k2_calls, packs = {}, []
-    packed_entry, pack = blocks.fused_conv3x3_bn_relu_packed, blocks.pack_conv3x3
-
-    def recording_entry(x, packed, relu=True):
-        key = (tuple(x.shape) + (packed.cout,), relu)
-        k2_calls[key] = k2_calls.get(key, 0) + 1
-        return packed_entry(x, packed, relu)
-
-    def counting_pack(*args):
-        packs[-1] += 1
-        return pack(*args)
-
-    # K1 likewise: the first request records each (input shape, Cout,
-    # residual) with one block's folded weights, and whether every input
-    # came channels_last and every folded weight sat on the card in its
-    # kernel dtype (so the wrapper copies nothing); every request counts
-    # its folds (MBConvBlock folds once, then reuses)
-    k1_calls, folds, k1_inputs = {}, [], set()
-    k1_entry, fold = encoders.mbconv_infer_nchw, encoders.fold_mbconv_weights
-
-    def recording_k1(x, p, residual):
-        key = (tuple(x.shape), p.wproj.shape[1], residual)
-        k1_calls.setdefault(key, [0, p])[0] += 1
-        k1_inputs.add((x.is_contiguous(memory_format=torch.channels_last),
-                       p.wdw.dtype == x.dtype and all(
-                           t.device == x.device and t.is_contiguous()
-                           for t in (p.wdw, p.bdw, p.bproj))))
-        return k1_entry(x, p, residual=residual)
-
-    def counting_fold(*args, **kwargs):
-        folds[-1] += 1
-        return fold(*args, **kwargs)
-
-    blocks.pack_conv3x3 = counting_pack
-    encoders.fold_mbconv_weights = counting_fold
-    torch.cuda.reset_peak_memory_stats()
-    reset(counters)
-    times = []
+    served = serve_counted(evaluator, requests, counters, "the flagship")
+    k2_calls, k1_calls, folds = served["k2_calls"], served["k1_calls"], served["folds"]
+    times = served["wall_ms"]
     classes_seen = set()
-    for i, imgs in enumerate(requests):
-        blocks.fused_conv3x3_bn_relu_packed = recording_entry if i == 0 else packed_entry
-        encoders.mbconv_infer_nchw = recording_k1 if i == 0 else k1_entry
-        packs.append(0)
-        folds.append(0)
-        t0 = time.perf_counter()
-        masks = evaluator.predict_semantic_masks(imgs)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        check(masks.shape == (2, 512, 512), f"mask shape {masks.shape}")
-        check(masks.dtype.kind == "i", f"mask dtype {masks.dtype}")
+    for ms, masks in zip(times, served["masks"]):
         counts = [int((masks == c).sum()) for c in range(3)]
-        check(sum(counts) == masks.size, "mask values outside {0, 1, 2}")
         classes_seen |= {c for c in range(3) if counts[c]}
-        print(f"request: 2x512^2 TTA, {times[-1] * 1e3:.1f} ms, classes {counts}")
-    blocks.pack_conv3x3 = pack
-    encoders.mbconv_infer_nchw, encoders.fold_mbconv_weights = k1_entry, fold
+        print(f"request: 2x512^2 TTA, {ms:.1f} ms, classes {counts}")
     launches = {**conv_fused.LAUNCHES, **mbconv.LAUNCHES}
-    peak = torch.cuda.max_memory_allocated()
-    print(f"slice: request ms {[round(t * 1e3, 1) for t in times]}, "
-          f"peak memory {peak} bytes, launches {json.dumps(launches)}, "
-          f"K2 weight packs per request {packs}, K1 weight folds per request {folds}")
+    print(f"slice: request ms {[round(t, 1) for t in times]}, CUDA-event span ms "
+          f"{[round(t, 1) for t in served['span_ms']]}, peak memory {served['peak']} bytes, "
+          f"launches {json.dumps(launches)}, K2 weight packs per request {served['packs']}, "
+          f"K1 weight folds per request {folds}, forwards {served['forwards'][-1]}")
     check(len(classes_seen) >= 2, f"the cascade decided only {classes_seen}")
     serving = ("conv3x3_bn_act_wgmma", "conv3x3_bn_act_smallc", "mbconv_nhwc_pass1",
                "mbconv_nhwc_pass2")
@@ -1586,15 +1918,12 @@ def main(argv=None) -> int:
     check(not any(off_path.values()), f"the serving path launched {off_path}")
     check(launches["mbconv_pass1"] == launches["mbconv_pass2"] == 0,
           f"the bf16 request launched no nchw kernel: {launches}")
-    check(packs[0] > 0 and not any(packs[1:]), f"K2 weight packs per request {packs}")
     k1_per_request = sum(c for c, _ in k1_calls.values())
-    check(launches["mbconv_nhwc_pass1"] == launches["mbconv_nhwc_pass2"]
-          == k1_per_request * len(requests), "the recorded K1 calls are the serving run's")
-    check(folds[0] > 0 and not any(folds[1:]), f"K1 weight folds per request {folds}")
-    check(k1_inputs == {(True, True)},
+    check(served["packs"][0] > 0 and folds[0] > 0, "K2 packs and K1 folds on the first request")
+    check(served["k1_inputs"] == {(True, True)},
           "every K1 input channels_last and every folded weight in place on the card")
     groups = profile_run(lambda: evaluator.predict_semantic_masks(requests[-1]),
-                         1e3 * min(times[1:]), "one request")
+                         min(times[1:]), "one request")
 
     # ---- 4b. K2 at every shape the serving path gave it ------------------
     t0 = time.perf_counter()
@@ -1723,81 +2052,34 @@ def main(argv=None) -> int:
           "tiled serving with TTA, the whole grid in one chunk")
     micrograph = synthetic_images(1, TILED_SIZE, 21)[0]
     n_tiles = len(tile_grid(TILED_SIZE, TILED_SIZE, TILE, TILE_OVERLAP)[2])
-    forwards = []
-    apply = tiled._apply
-
-    def counting_apply(x):
-        forwards[-1].append(tuple(x.shape))
-        return apply(x)
-
-    tiled._apply = counting_apply
-    tiled_k2, tiled_k1 = {}, {}
-
-    def recording_tiled_k2(x, packed, relu=True):
-        key = tuple(x.shape) + (packed.cout,)
-        tiled_k2[key] = tiled_k2.get(key, 0) + 1
-        return packed_entry(x, packed, relu)
-
-    def recording_tiled_k1(x, p, residual):
-        key = (tuple(x.shape), p.wproj.shape[1])
-        tiled_k1[key] = tiled_k1.get(key, 0) + 1
-        return k1_entry(x, p, residual=residual)
-
-    blocks.pack_conv3x3 = counting_pack
-    encoders.fold_mbconv_weights = counting_fold
-    packs.clear()
-    folds.clear()
-    tiled_walls, tiled_spans, tiled_launch_runs = [], [], []
-    torch.cuda.reset_peak_memory_stats()
-    for i in range(3):
-        blocks.fused_conv3x3_bn_relu_packed = recording_tiled_k2 if i == 0 else packed_entry
-        encoders.mbconv_infer_nchw = recording_tiled_k1 if i == 0 else k1_entry
-        packs.append(0)
-        folds.append(0)
-        forwards.append([])
-        reset(counters)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        start.record()
-        tiled_mask = tiled.predict_semantic_mask(micrograph)
-        end.record()
-        torch.cuda.synchronize()
-        tiled_walls.append(1e3 * (time.perf_counter() - t0))
-        tiled_spans.append(start.elapsed_time(end))
-        tiled_launch_runs.append({k: v for c in counters for k, v in c.items()})
-        counts = [int((tiled_mask == c).sum()) for c in range(3)]
+    tiled_run = serve_counted(tiled, [micrograph] * 3, counters, "tiled serving",
+                              serve=tiled.predict_semantic_mask)
+    for i, (wall, span, shapes, mask) in enumerate(zip(
+            tiled_run["wall_ms"], tiled_run["span_ms"], tiled_run["forwards"],
+            tiled_run["masks"])):
+        counts = [int((mask == c).sum()) for c in range(3)]
         print(f"tiled request {i + 1}: {TILED_SIZE}^2, tile {TILE}, overlap {TILE_OVERLAP}, "
-              f"TTA: wall {tiled_walls[-1]:.1f} ms, CUDA-event span {tiled_spans[-1]:.1f} ms, "
-              f"forwards {forwards[-1]}, classes {counts}")
-        check(tiled_mask.shape == (TILED_SIZE, TILED_SIZE) and tiled_mask.dtype == np.uint8,
-              f"tiled mask {tiled_mask.shape} {tiled_mask.dtype}")
-        check(sum(counts) == tiled_mask.size, "tiled mask values outside {0, 1, 2}")
+              f"TTA: wall {wall:.1f} ms, CUDA-event span {span:.1f} ms, forwards {shapes}, "
+              f"classes {counts}")
+        check(mask.dtype == np.uint8, f"tiled mask {mask.dtype}")
         check(sum(1 for c in counts if c) >= 2, f"the tiled cascade decided only {counts}")
-    tiled_peak = torch.cuda.max_memory_allocated()
-    blocks.pack_conv3x3 = pack
-    encoders.mbconv_infer_nchw, encoders.fold_mbconv_weights = k1_entry, fold
-    blocks.fused_conv3x3_bn_relu_packed = packed_entry
-    tiled._apply = apply
-    tiled_launches = tiled_launch_runs[-1]
-    print(f"tiled serving: {n_tiles} tiles a request, forwards {forwards[-1]}, peak memory "
-          f"{tiled_peak} bytes, launches per request {json.dumps(tiled_launches)}, K2 packs "
-          f"per request {packs}, K1 folds per request {folds}; K2 shapes "
-          f"{sorted(tiled_k2.items())}; K1 shapes {sorted(tiled_k1.items())}")
-    check(all(run == tiled_launches for run in tiled_launch_runs),
+    tiled_mask, tiled_walls = tiled_run["masks"][-1], tiled_run["wall_ms"]
+    tiled_launches = tiled_run["runs"][-1]
+    print(f"tiled serving: {n_tiles} tiles a request, forwards {tiled_run['forwards'][-1]}, "
+          f"peak memory {tiled_run['peak']} bytes, launches per request "
+          f"{json.dumps(tiled_launches)}, K2 packs per request {tiled_run['packs']}, K1 folds "
+          f"per request {tiled_run['folds']}; K2 shapes {sorted(tiled_run['k2_calls'].items())}; "
+          f"K1 shapes {sorted((k, c) for k, (c, _) in tiled_run['k1_calls'].items())}")
+    check(all(run == tiled_launches for run in tiled_run["runs"]),
           "every tiled request launches the same kernels")
-    check(forwards[-1] == [(3 * n_tiles, TILE, TILE, 3),
-                           (n_tiles, TILE * 3 // 4, TILE * 3 // 4, 3),
-                           (n_tiles, TILE * 5 // 4, TILE * 5 // 4, 3)],
-          f"the whole grid in one chunk: the trio and two scales ({forwards[-1]})")
+    check(tiled_run["forwards"][-1] == [(3 * n_tiles, TILE, TILE, 3),
+                                        (n_tiles, TILE * 3 // 4, TILE * 3 // 4, 3),
+                                        (n_tiles, TILE * 5 // 4, TILE * 5 // 4, 3)],
+          f"the whole grid in one chunk: the trio and two scales ({tiled_run['forwards'][-1]})")
     for name in serving:
         check(tiled_launches[name] > 0, f"the tiled path launched {name}")
     tiled_off = {k: v for k, v in tiled_launches.items() if k not in serving}
     check(not any(tiled_off.values()), f"the tiled path launched {tiled_off}")
-    check(sum(tiled_k2.values()) == tiled_launches["conv3x3_bn_act_wgmma"]
-          + tiled_launches["conv3x3_bn_act_smallc"], "the recorded K2 calls are a request's")
-    check(not any(packs[1:]) and not any(folds[1:]),
-          f"no K2 pack or K1 fold after the first tiled request: {packs}, {folds}")
     tiled_groups = profile_run(lambda: tiled.predict_semantic_mask(micrograph),
                                min(tiled_walls[1:]), f"one tiled {TILED_SIZE}^2 request")
     # the host-stitched path (chunks of 8 tiles, probabilities downloaded)
@@ -2070,10 +2352,13 @@ def main(argv=None) -> int:
     check(grad32 <= grad_tol, "tiny fp32 gradients within 1e-3 (or the fp32 noise) of the cpu")
     check(grad64 <= 1e-4, "tiny fp64 gradients within 1e-4 of the cpu")
 
-    # ---- 7. the training entry point ---------------------------------------
-    phase7_training_entry(card, counters, dev)
+    # ---- 7. the training entry point; 9. the zoo, in its folder -------------
+    zoo_launches = phase7_training_entry(
+        card, counters, dev,
+        after=lambda tmp, data_dir: phase9_zoo(card, counters, dev, tmp, data_dir, k2_row,
+                                               set(k2_calls)))
 
-    # ---- 8. report -------------------------------------------------------
+    # ---- 10. report ------------------------------------------------------
     meta = {
         "conv3x3_bn_act_wgmma": ("enhanced_unet_tpu_torch/csrc/conv3x3_bn_act.cu",
                                  "enhanced_unet_tpu/ops/pallas/conv_fused.py:109"),
@@ -2128,6 +2413,8 @@ def main(argv=None) -> int:
                         "library_ms": r["library_ms"],
                         **({"tiled_launches": tiled_launches[name]} if name in serving
                            else {}),
+                        **({"zoo_launches": {m: k[name] for m, k in zoo_launches.items()}}
+                           if name in conv_fused.LAUNCHES else {}),
                         **{k: r[k] for k in ("library_conv_ms", "library_block_ms", "nchw_ms",
                                              "yardstick_ms", "copy_ratio", "bf16_weights_ms")
                            if k in r},

@@ -5,11 +5,12 @@ The reference trains from smp encoders that hold upstream ImageNet weights:
 torchvision's ResNets and lukemelas/efficientnet-pytorch's EfficientNets.
 `WEIGHT_MANIFEST` names those files; download them anywhere with network
 access into one directory, and `initialize_pretrained(state, model_name,
-weights_dir)` loads them into a fresh `TrainState`.  The port's
-EfficientNet encoders use efficientnet-pytorch's key names (`_conv_stem`,
-`_bn0`, `_blocks.{i}.*`), so a file loads as it is, less its classifier
-head (`_conv_head`, the top-level `_bn1`, `_fc`), which no encoder of the
-reference calls.
+weights_dir)` loads them into a fresh `TrainState`.  The port's encoders
+use the upstream key names (efficientnet-pytorch's `_conv_stem`, `_bn0`,
+`_blocks.{i}.*`; torchvision's `conv1`, `bn1`, `layer{i}.*`), so a file
+loads as it is, less what no encoder of the reference calls
+(`torch_import.is_unused_upstream`: efficientnet-pytorch's classifier
+head, torchvision's `fc` and the stages past the model's encoder depth).
 
 File integrity: torch.hub's convention embeds the first 8 hex digits of
 the file's SHA256 in its name; `verify_weight_file` checks it.
@@ -24,7 +25,11 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
-from enhanced_unet_tpu_torch.convert.torch_import import check_exact, is_effnet_head
+from enhanced_unet_tpu_torch.convert.torch_import import (
+    check_exact,
+    is_unused_upstream,
+    with_missing_counters,
+)
 
 # Upstream weight files, exactly as segmentation_models_pytorch resolves
 # them for the reference's six models (models.py:182-192, 255-275, 353-362,
@@ -115,29 +120,29 @@ def initialize_pretrained(state, model_name: str, weights_dir: Optional[str] = N
     """Load ImageNet-pretrained encoder weights into a fresh `TrainState`,
     in place: for `enhanced_unet`, efficientnet-b5 into
     `state.model.unetpp.encoder` and efficientnet-b4 into
-    `state.model.deeplab.encoder`.
+    `state.model.deeplab.encoder`; for `unet`, `fcn`, `pspnet` and
+    `linknet`, their torchvision ResNet into `state.model.model.encoder`.
 
     weights_dir: the directory that holds the manifest's files; state_dicts:
-    {variant: raw upstream state dict} in their place.  The classifier head
-    (`_conv_head.*`, `_bn1.*`, `_fc.*`) is dropped; every other key must be
-    the encoder's, with its shape, or it raises before any weight is
+    {variant: raw upstream state dict} in their place.  What the encoder does
+    not hold and never calls (the classifier heads, `fc.*`, the ResNet
+    stages past the encoder's depth) is dropped, and missing BatchNorm
+    `num_batches_tracked` counters keep the encoder's; every other key must
+    be the encoder's, with its shape, or it raises before any weight is
     written.  Returns (state, imported variants)."""
     roles = _MODEL_VARIANTS.get(model_name)
     if not roles:
         raise ValueError(
             f"{model_name} has no pretrained encoders (reference trains it "
             "from scratch)")
-    if model_name != "enhanced_unet":
-        raise NotImplementedError(
-            f"{model_name}: the port has no ResNet encoders yet "
-            "(ROADMAP.md, Queue 1 item 3)")
     loads = []
     for prefix, variant in roles.items():
         path = prefix.rstrip(".")
         encoder = state.model.get_submodule(path)
         sd = (state_dicts[variant] if state_dicts is not None
               else _read_weights(weights_dir, variant, verify))
-        sd = {k: v for k, v in sd.items() if not is_effnet_head(k)}
+        sd = with_missing_counters(
+            encoder, {k: v for k, v in sd.items() if not is_unused_upstream(k, encoder)})
         check_exact(encoder, sd, f"{variant} into {path}")
         loads.append((encoder, path, variant, sd))
     # every file is checked before the first encoder is written

@@ -1,6 +1,7 @@
-"""Building blocks of the flagship, ported from
-`enhanced_unet_tpu/models/blocks.py` (ConvBNAct, DoubleConv, SCSEBlock,
-SeparableConvBNAct, ASPP).
+"""Building blocks of the model zoo, ported from
+`enhanced_unet_tpu/models/blocks.py` (ConvBNAct, DoubleConv, the 2x2 pools
+with and without indices, SCSEBlock, UpConcatBlock, SeparableConvBNAct, ASPP,
+PSPModule).
 
 NCHW modules whose parameter names follow the reference state dict
 (segmentation_models_pytorch's `Conv2dReLU`, `SCSEModule`,
@@ -14,7 +15,7 @@ explicit `torch.Generator`.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -25,6 +26,11 @@ from enhanced_unet_tpu_torch.ops.kernels.conv_fused import (
     fold_bn_params,
     fused_conv3x3_bn_relu_packed,
     pack_conv3x3,
+)
+from enhanced_unet_tpu_torch.ops.resize import (
+    resize_bilinear_nchw,
+    upsample2x_nchw,
+    upsample2x_nearest_nchw,
 )
 
 
@@ -95,68 +101,82 @@ def refuse_autograd(block: str, params) -> None:
             "forwards under torch.no_grad()/torch.inference_mode(), or use train mode")
 
 
-def packed_conv3x3(layer: nn.Conv2d, bn: nn.BatchNorm2d, dtype: torch.dtype,
-                   device: torch.device) -> PackedConv3x3:
+def packed_conv3x3(layer: nn.Conv2d, bn: Optional[nn.BatchNorm2d],
+                   dtype: torch.dtype, device: torch.device) -> PackedConv3x3:
     """The fused kernel's weights for `layer` + `bn` (BN folded, cast,
-    permuted), packed once and kept on `layer`.  They are packed again when
-    the conv weight or bias or a BN tensor is replaced or edited in place
+    permuted), packed once and kept on `layer`.  Without `bn` the scale is 1
+    and the shift the conv's bias.  They are packed again when the conv
+    weight or bias or a BN tensor is replaced or edited in place
     (`load_state_dict`, `.to()`, `weight.mul_`: a new `data_ptr` or
     `_version`), or for another dtype or device."""
-    tensors = [layer.weight, layer.bias, bn.weight, bn.bias, bn.running_mean,
-               bn.running_var]
+    tensors = [layer.weight, layer.bias]
+    if bn is not None:
+        tensors += [bn.weight, bn.bias, bn.running_mean, bn.running_var]
     key = (tuple(None if t is None else (t.data_ptr(), t._version) for t in tensors),
-           bn.eps, dtype, device)
+           None if bn is None else bn.eps, dtype, device)
     cached = layer.__dict__.get("_packed_conv3x3")
     if cached is not None and cached[0] == key:
         return cached[1]
-    scale, shift = fold_bn_params(bn.weight, bn.bias, bn.running_mean,
-                                  bn.running_var, bn.eps, layer.bias)
+    if bn is not None:
+        scale, shift = fold_bn_params(bn.weight, bn.bias, bn.running_mean,
+                                      bn.running_var, bn.eps, layer.bias)
+    else:
+        scale = torch.ones_like(layer.weight[:, 0, 0, 0])
+        shift = torch.zeros_like(scale) if layer.bias is None else layer.bias
     packed = pack_conv3x3(layer.weight.permute(2, 3, 1, 0), scale, shift, dtype,
                           device)
     layer.__dict__["_packed_conv3x3"] = (key, packed)
     return packed
 
 
-def conv_bn_act(x: torch.Tensor, layer: nn.Conv2d, bn: nn.BatchNorm2d,
+def conv_bn_act(x: torch.Tensor, layer: nn.Conv2d, bn: Optional[nn.BatchNorm2d],
                 relu: bool, dtype: torch.dtype) -> torch.Tensor:
-    """Conv -> BN -> optional ReLU.  In eval mode a 3x3, stride-1,
-    undilated, ungrouped conv goes through the fused conv3x3+BN+ReLU kernel
-    with its weights packed once (its plain version on the CPU), and raises
-    when autograd would record it; train mode (batch statistics, which a
-    folded BN cannot give) and any other conv run as plain PyTorch."""
-    if (not bn.training and layer.kernel_size == (3, 3) and layer.stride == (1, 1)
+    """Conv -> BN (none when `bn` is None: the conv's bias alone) ->
+    optional ReLU.  In eval mode a 3x3, stride-1, undilated, ungrouped conv
+    goes through the fused conv3x3+BN+ReLU kernel with its weights packed
+    once (its plain version on the CPU), and raises when autograd would
+    record it; train mode (batch statistics, which a folded BN cannot give)
+    and any other conv run as plain PyTorch."""
+    training = layer.training if bn is None else bn.training
+    if (not training and layer.kernel_size == (3, 3) and layer.stride == (1, 1)
             and layer.dilation == (1, 1) and layer.groups == 1):
+        params = [layer.weight, layer.bias] + ([] if bn is None else [bn.weight, bn.bias])
         refuse_autograd(f"3x3 ConvBNAct {layer.in_channels}->{layer.out_channels}",
-                        (layer.weight, bn.weight, bn.bias))
+                        [p for p in params if p is not None])
         xh = x.to(dtype).permute(0, 2, 3, 1).contiguous()
         y = fused_conv3x3_bn_relu_packed(
             xh, packed_conv3x3(layer, bn, dtype, xh.device), relu=relu)
         return y.permute(0, 3, 1, 2)
-    y = batch_norm(conv(x, layer, dtype), bn)
+    y = conv(x, layer, dtype)
+    if bn is not None:
+        y = batch_norm(y, bn)
     return torch.relu(y) if relu else y
 
 
 class ConvBNAct(nn.Sequential):
-    """Conv2d (no bias: a bias before BN is dead) -> BatchNorm -> ReLU or
-    no activation.  State-dict layout of smp's `Conv2dReLU` (`0` conv,
-    `1` BN).  Padding is symmetric `k // 2`, which equals TF SAME at
-    stride 1."""
+    """Conv2d -> BatchNorm -> ReLU or no activation.  State-dict layout of
+    smp's `Conv2dReLU` (`0` conv, `1` BN).  The conv has no bias (a bias
+    before BN is dead), except with `use_bn=False`, where the bias stands
+    in for the BN (`0` conv alone).  Padding is symmetric `k // 2`, which
+    equals TF SAME at stride 1 and is the JAX package's `padding="torch"`."""
 
-    def __init__(self, cin: int, cout: int, kernel_size: int = 3,
-                 act: Optional[str] = "relu", eps: float = 1e-5,
+    def __init__(self, cin: int, cout: int, kernel_size: int = 3, stride: int = 1,
+                 act: Optional[str] = "relu", use_bn: bool = True, eps: float = 1e-5,
                  dtype: torch.dtype = torch.bfloat16):
-        super().__init__(
-            nn.Conv2d(cin, cout, kernel_size, padding=kernel_size // 2,
-                      bias=False),
-            nn.BatchNorm2d(cout, eps=eps),
-        )
+        layers = [nn.Conv2d(cin, cout, kernel_size, stride, padding=kernel_size // 2,
+                            bias=not use_bn)]
+        if use_bn:
+            layers.append(nn.BatchNorm2d(cout, eps=eps))
+        super().__init__(*layers)
         if act not in ("relu", None):
             raise ValueError(f"unsupported activation {act}")
         self.act = act
+        self.use_bn = use_bn
         self.dtype = dtype
 
     def forward(self, x):
-        return conv_bn_act(x, self[0], self[1], self.act == "relu", self.dtype)
+        return conv_bn_act(x, self[0], self[1] if self.use_bn else None,
+                           self.act == "relu", self.dtype)
 
 
 class DoubleConv(nn.Module):
@@ -170,6 +190,32 @@ class DoubleConv(nn.Module):
 
     def forward(self, x):
         return self.conv2(self.conv1(x))
+
+
+def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
+    """`nn.MaxPool2d(2, 2)` on NCHW."""
+    return F.max_pool2d(x, 2)
+
+
+def max_pool_with_indices(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """2x2 max pool of NCHW `x` with each window's argmax: (pooled
+    [N,C,H/2,W/2], idx of the same shape in 0..3, row-major in the window).
+    The index is that of the first maximum, as `jnp.argmax` gives it (reshape
+    + `torch.argmax`); `F.max_pool2d(return_indices=True)` breaks ties
+    otherwise, and ties are common in bf16."""
+    n, c, h, w = x.shape
+    xr = x.reshape(n, c, h // 2, 2, w // 2, 2).permute(0, 1, 2, 4, 3, 5)
+    xr = xr.reshape(n, c, h // 2, w // 2, 4)
+    return xr.amax(dim=-1), xr.argmax(dim=-1)
+
+
+def max_unpool_2x2(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Inverse of `max_pool_with_indices`: each value back at its argmax
+    position, zeros elsewhere (torch `MaxUnpool2d`'s result)."""
+    n, c, h2, w2 = x.shape
+    onehot = F.one_hot(idx, 4).to(x.dtype)                 # [N,C,H2,W2,4]
+    out = (onehot * x[..., None]).reshape(n, c, h2, w2, 2, 2).permute(0, 1, 2, 4, 3, 5)
+    return out.reshape(n, c, 2 * h2, 2 * w2)
 
 
 class SCSEBlock(nn.Module):
@@ -270,3 +316,64 @@ class ASPP(nn.Module):
     def forward(self, x, generator: Optional[torch.Generator] = None):
         y = self.project(torch.cat([m(x) for m in self.convs], dim=1))
         return dropout(y, self.dropout, generator) if self.training else y
+
+
+class UpConcatBlock(nn.Sequential):
+    """The UNet decoder step: 2x upsample (nearest, as smp's decoder blocks;
+    bilinear for the reference's BasicUNet), concat with the skip and two
+    3x3 ConvBNActs (`0`, `1`)."""
+
+    def __init__(self, cin: int, skip: int, cout: int, bilinear: bool = False,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__(ConvBNAct(cin + skip, cout, dtype=dtype),
+                         ConvBNAct(cout, cout, dtype=dtype))
+        self.bilinear = bilinear
+
+    def forward(self, x, skip=None):
+        x = upsample2x_nchw(x) if self.bilinear else upsample2x_nearest_nchw(x)
+        if skip is not None:
+            x = torch.cat([x, skip.to(x.dtype)], dim=1)
+        for m in self:
+            x = m(x)
+        return x
+
+
+def _adaptive_avg_pool(x: torch.Tensor, out_size: int) -> torch.Tensor:
+    """`AdaptiveAvgPool2d(out_size)`: bin i spans floor(i * H / out) to
+    ceil((i + 1) * H / out), equal bins when H divides."""
+    return F.adaptive_avg_pool2d(x, out_size)
+
+
+class PSPModule(nn.Module):
+    """Pyramid pooling: for each bin size, adaptive average pooling, a 1x1
+    ConvBNAct (`stages.{i}`) and a bilinear resize back; concatenated after
+    the input."""
+
+    def __init__(self, cin: int, features: int = 64,
+                 bin_sizes: Sequence[int] = (1, 2, 3, 6),
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.bin_sizes = tuple(bin_sizes)
+        self.stages = nn.ModuleList([ConvBNAct(cin, features, 1, dtype=dtype)
+                                     for _ in self.bin_sizes])
+
+    def forward(self, x):
+        size = x.shape[2:]
+        outs = [x]
+        for b, stage in zip(self.bin_sizes, self.stages):
+            pooled = stage(_adaptive_avg_pool(x, b))
+            outs.append(resize_bilinear_nchw(pooled, size).to(x.dtype))
+        return torch.cat(outs, dim=1)
+
+
+class NHWCModel(nn.Module):
+    """A zoo model: `model(x_nhwc, generator=None) -> (logits_nhwc_f32, {})`.
+    Subclasses compute `logits(x_nchw, generator)`; on the card the input
+    goes in channels_last.  `generator` draws train-mode dropout."""
+
+    def forward(self, x_nhwc: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
+        x = x_nhwc.permute(0, 3, 1, 2)
+        if x.is_cuda:
+            x = x.contiguous(memory_format=torch.channels_last)
+        return self.logits(x, generator).float().permute(0, 2, 3, 1), {}

@@ -1,10 +1,17 @@
-"""EfficientNet feature encoder, ported from
-`enhanced_unet_tpu/models/encoders.py` (DepthwiseConv, MBConvBlock,
-EfficientNetEncoder).  Parameter names follow efficientnet-pytorch
-(`_conv_stem`, `_bn0`, `_blocks.{i}._depthwise_conv`, ...), the layout of
-smp's EfficientNet encoders.
+"""Feature encoders, ported from `enhanced_unet_tpu/models/encoders.py`:
+ResNet-18/34/50 (BasicResBlock, BottleneckResBlock, ResNetEncoder) and
+EfficientNet (MBConvBlock, EfficientNetEncoder), with `build_encoder`.
 
-The encoder emits smp's feature pyramid [input, s2, s4, s8, s16, s32].
+Parameter names are the upstream ones that smp's encoders hold:
+torchvision's for the ResNets (`conv1`, `bn1`, `layer{i}.{b}.conv{k}`,
+`layer{i}.{b}.bn{k}`, `layer{i}.{b}.downsample.{0,1}`), efficientnet-pytorch's
+for the EfficientNets (`_conv_stem`, `_bn0`, `_blocks.{i}._depthwise_conv`,
+...).  So `enhanced_unet_tpu.convert.torch_import` reads a port encoder's
+state dict as it reads an upstream file.
+
+Each encoder emits smp's feature pyramid [input, s2, s4, s8, s16, s32].
+ResNet convs pad symmetrically (`k // 2`, torchvision's); their eval-mode
+3x3 stride-1 convs run the fused conv3x3+BN+ReLU kernel (`conv_bn_act`).
 Stride-2 convs use TF SAME padding (asymmetric: (0, 1) for k3 and (1, 2)
 for k5 on even input).  At output stride 16, stages 5-6 keep stride 1 and
 dilate their depthwise convs by 2, padded symmetrically.  In eval mode the
@@ -24,6 +31,7 @@ import torch.nn.functional as F
 from enhanced_unet_tpu_torch.models.blocks import (
     batch_norm,
     conv,
+    conv_bn_act,
     need_generator,
     refuse_autograd,
 )
@@ -32,6 +40,119 @@ from enhanced_unet_tpu_torch.ops.kernels.mbconv import (
     fold_mbconv_weights,
     mbconv_infer_nchw,
 )
+
+def _downsample(cin: int, cout: int, stride: int) -> Optional[nn.Sequential]:
+    """torchvision's shortcut projection (1x1 stride-s conv, BN), where the
+    block changes the shape."""
+    if stride == 1 and cin == cout:
+        return None
+    return nn.Sequential(nn.Conv2d(cin, cout, 1, stride, bias=False), nn.BatchNorm2d(cout))
+
+
+def _shortcut(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    ds = block.downsample
+    return x if ds is None else conv_bn_act(x, ds[0], ds[1], False, block.dtype)
+
+
+class BasicResBlock(nn.Module):
+    """torchvision's BasicBlock: 3x3 (stride s) -> BN -> ReLU -> 3x3 -> BN,
+    plus the input (projected where the shape changes), then ReLU."""
+
+    expansion = 1
+
+    def __init__(self, cin: int, width: int, stride: int = 1,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.conv1 = nn.Conv2d(cin, width, 3, stride, 1, bias=False)
+        self.bn1 = nn.BatchNorm2d(width)
+        self.conv2 = nn.Conv2d(width, width, 3, 1, 1, bias=False)
+        self.bn2 = nn.BatchNorm2d(width)
+        self.downsample = _downsample(cin, width, stride)
+        self.dtype = dtype
+
+    def forward(self, x):
+        y = conv_bn_act(x, self.conv1, self.bn1, True, self.dtype)
+        y = conv_bn_act(y, self.conv2, self.bn2, False, self.dtype)
+        return torch.relu(y + _shortcut(self, x))
+
+
+class BottleneckResBlock(nn.Module):
+    """torchvision's Bottleneck (v1.5: the stride on the 3x3): 1x1 -> 3x3
+    (stride s) -> 1x1 to 4x the width, each with BN, ReLU between; plus the
+    input (projected where the shape changes), then ReLU."""
+
+    expansion = 4
+
+    def __init__(self, cin: int, width: int, stride: int = 1,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.conv1 = nn.Conv2d(cin, width, 1, bias=False)
+        self.bn1 = nn.BatchNorm2d(width)
+        self.conv2 = nn.Conv2d(width, width, 3, stride, 1, bias=False)
+        self.bn2 = nn.BatchNorm2d(width)
+        self.conv3 = nn.Conv2d(width, width * 4, 1, bias=False)
+        self.bn3 = nn.BatchNorm2d(width * 4)
+        self.downsample = _downsample(cin, width * 4, stride)
+        self.dtype = dtype
+
+    def forward(self, x):
+        y = conv_bn_act(x, self.conv1, self.bn1, True, self.dtype)
+        y = conv_bn_act(y, self.conv2, self.bn2, True, self.dtype)
+        y = conv_bn_act(y, self.conv3, self.bn3, False, self.dtype)
+        return torch.relu(y + _shortcut(self, x))
+
+
+RESNET_SPECS = {
+    "resnet18": (BasicResBlock, (2, 2, 2, 2)),
+    "resnet34": (BasicResBlock, (3, 4, 6, 3)),
+    "resnet50": (BottleneckResBlock, (3, 4, 6, 3)),
+}
+
+
+class ResNetEncoder(nn.Module):
+    """torchvision ResNet trunk emitting [input, s2, s4, s8, s16, s32], cut
+    at `depth` (smp's encoder_depth): stages past it are not built.  The
+    stride-2 feature is the stem's ReLU output; the 3x3/2 max pool after it
+    pads with -inf."""
+
+    def __init__(self, variant: str = "resnet50", depth: int = 5,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        block, layers = RESNET_SPECS[variant]
+        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.bn1 = nn.BatchNorm2d(64)
+        self.out_channels = [3, 64]
+        cin = 64
+        for stage, (width, n) in enumerate(zip((64, 128, 256, 512), layers)):
+            if stage + 2 > depth:
+                break
+            blocks = []
+            for b in range(n):
+                blocks.append(block(cin, width, 2 if (b == 0 and stage > 0) else 1, dtype))
+                cin = width * block.expansion
+            setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
+            self.out_channels.append(cin)
+        self.variant, self.depth = variant, depth
+        self.dtype = dtype
+
+    @property
+    def n_stages(self) -> int:
+        return len(self.out_channels) - 2
+
+    def forward(self, x, generator: Optional[torch.Generator] = None
+                ) -> List[torch.Tensor]:
+        del generator  # no random draws
+        feats = [x]
+        y = conv_bn_act(x, self.conv1, self.bn1, True, self.dtype)
+        feats.append(y)
+        if self.depth < 2:
+            return feats
+        y = F.max_pool2d(y, 3, 2, 1)
+        for stage in range(self.n_stages):
+            y = getattr(self, f"layer{stage + 1}")(y)
+            feats.append(y)
+        return feats
+
 
 # base (B0) stage spec: (expand_ratio, channels, repeats, stride, kernel)
 _EFFNET_BASE = (
@@ -256,3 +377,14 @@ class EfficientNetEncoder(nn.Module):
             y = blk(y, generator)
         feats.append(y)
         return feats
+
+
+def build_encoder(name: str, depth: int = 5, output_stride: int = 32,
+                  dtype: torch.dtype = torch.bfloat16) -> nn.Module:
+    """The encoder `name` (resnet18/34/50 cut at `depth`, or an EfficientNet
+    at `output_stride`)."""
+    if name.startswith("resnet"):
+        return ResNetEncoder(name, depth, dtype)
+    if name.startswith("efficientnet"):
+        return EfficientNetEncoder(name, output_stride, dtype=dtype)
+    raise ValueError(f"unknown encoder {name}")

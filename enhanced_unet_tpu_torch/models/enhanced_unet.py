@@ -1,6 +1,6 @@
-"""EnhancedUNet, the flagship dual-branch model, ported from
-`enhanced_unet_tpu/models/enhanced_unet.py` (NestedBlock, UNetPlusPlus,
-DeepLabV3Plus, EnhancedUNet).
+"""EnhancedUNet, the flagship dual-branch model, and its non-smp fallback
+EnhancedUNetBasic, ported from `enhanced_unet_tpu/models/enhanced_unet.py`
+(EnhancedUNetBasic, NestedBlock, UNetPlusPlus, DeepLabV3Plus, EnhancedUNet).
 
 - main branch: UNet++ (nested dense-skip decoder with scSE) over
   EfficientNet-B5;
@@ -30,6 +30,7 @@ from enhanced_unet_tpu_torch.models.blocks import (
     Attention,
     ConvBNAct,
     DoubleConv,
+    NHWCModel,
     SeparableConv2d,
     SeparableConvBNAct,
     batch_norm,
@@ -39,11 +40,33 @@ from enhanced_unet_tpu_torch.models.blocks import (
     need_generator,
 )
 from enhanced_unet_tpu_torch.models.encoders import EfficientNetEncoder
+from enhanced_unet_tpu_torch.models.unet import BasicUNet
 from enhanced_unet_tpu_torch.ops.resize import (
     resize_bilinear_align_corners_nchw,
     resize_bilinear_nchw,
     upsample2x_nearest_nchw,
 )
+
+
+class EnhancedUNetBasic(NHWCModel):
+    """The reference's non-smp EnhancedUNet fallback: a BasicUNet
+    (`backbone`) and a residual head on its logits, `out +
+    conv1(relu(bn(conv3(out))))` (`enhance.0`, `.1`, `.3`), the 3x3 conv with
+    a bias folded into the fused conv3x3+BN+ReLU kernel.  No aux outputs."""
+
+    def __init__(self, num_classes: int = 3, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.backbone = BasicUNet(num_classes, dtype)
+        self.enhance = nn.Sequential(
+            nn.Conv2d(num_classes, 64, 3, padding=1), nn.BatchNorm2d(64), nn.ReLU(),
+            nn.Conv2d(64, num_classes, 1))
+        self.dtype = dtype
+
+    def logits(self, x, generator: Optional[torch.Generator] = None):
+        out = self.backbone.logits(x, generator).float()
+        y = conv_bn_act(out.to(self.dtype), self.enhance[0], self.enhance[1], True,
+                        self.dtype)
+        return out + conv(y, self.enhance[3], self.dtype).float()
 
 
 class NestedBlock(DoubleConv):

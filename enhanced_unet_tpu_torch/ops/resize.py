@@ -35,6 +35,11 @@ def resize_bilinear_align_corners_nchw(x: torch.Tensor,
     return y.to(x.dtype)
 
 
+def upsample2x_nchw(x: torch.Tensor) -> torch.Tensor:
+    """`nn.Upsample(scale_factor=2, mode="bilinear", align_corners=False)`."""
+    return resize_bilinear_nchw(x, (x.shape[-2] * 2, x.shape[-1] * 2))
+
+
 def upsample2x_nearest_nchw(x: torch.Tensor) -> torch.Tensor:
     return F.interpolate(x, scale_factor=2, mode="nearest")
 
@@ -47,6 +52,11 @@ def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
 def resize_bilinear_align_corners(x: torch.Tensor,
                                   size: Tuple[int, int]) -> torch.Tensor:
     return _nhwc_call(x, lambda t: resize_bilinear_align_corners_nchw(t, size))
+
+
+def upsample2x(x: torch.Tensor) -> torch.Tensor:
+    """NHWC/HWC bilinear 2x upsample (half-pixel, as `F.interpolate`)."""
+    return _nhwc_call(x, upsample2x_nchw)
 
 
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:

@@ -29,6 +29,7 @@ values, all overwritten by the restore).  Tolerances:
 """
 
 import csv
+import dataclasses
 import json
 import os
 
@@ -43,6 +44,7 @@ from synthdata import make_synthetic_dataset
 from test_torch_port_pretrained import effnet_head
 
 from enhanced_unet_tpu import config as jconfig
+from enhanced_unet_tpu.convert import torch_import as jimport
 from enhanced_unet_tpu.convert.torch_import import convert_enhanced_unet
 from enhanced_unet_tpu.train import api as japi
 from enhanced_unet_tpu.train import checkpoint as jcheckpoint
@@ -70,6 +72,18 @@ HISTORY = {"train_loss": [2.0, 1.5, 1.25], "val_loss": [1.5], "val_miou": [0.25]
 
 def _silent(*a):
     pass
+
+
+@dataclasses.dataclass
+class JaxStateStub:
+    """What the JAX package's `load_torch_checkpoint` and
+    `initialize_pretrained` read and replace of a `TrainState`."""
+
+    params: dict
+    batch_stats: dict
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
 
 
 def _tiny(seed=0):
@@ -250,8 +264,18 @@ def test_load_torch_checkpoint_report(checkpoints):
         load_torch_checkpoint({"model_state_dict": sd}, state, "enhanced_unet")
     assert torch.equal(state.model.state_dict()["unetpp.encoder._conv_stem.weight"],
                        want["unetpp.encoder._conv_stem.weight"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        load_torch_checkpoint({"model_state_dict": sd}, state, "unet")
+    # a zoo model takes the checkpoint's `model.encoder.*` alone (here none):
+    # the report is the JAX package's, and no tensor changes
+    unet = create_train_state(models.get_model("unet", dtype=torch.float32, device="cpu"),
+                              get_preset("unet"), 1, device="cpu")
+    before = {k: v.clone() for k, v in unet.model.state_dict().items()}
+    _, report = load_torch_checkpoint({"model_state_dict": sd, "epoch": 3}, unet, "unet")
+    _, jreport = jimport.load_torch_checkpoint({"model_state_dict": sd, "epoch": 3},
+                                               JaxStateStub({}, {}), "unet")
+    assert report == jreport
+    assert report["imported"] == [] and report["skipped"] == [
+        "attention_gate", "deeplab", "fusion_head", "fusion_residual", "unetpp"]
+    assert all(torch.equal(v, before[k]) for k, v in unet.model.state_dict().items())
 
 
 @pytest.fixture(scope="module")

@@ -64,7 +64,10 @@ for name in ("enhanced_unet_tpu_torch.ops.kernels.mbconv",
              "enhanced_unet_tpu_torch.train.checkpoint", "enhanced_unet_tpu_torch.train.api",
              "enhanced_unet_tpu_torch.viz.visualizer", "enhanced_unet_tpu_torch.utils.profiler",
              "enhanced_unet_tpu_torch.convert.pretrained",
-             "enhanced_unet_tpu_torch.convert.torch_import"):
+             "enhanced_unet_tpu_torch.convert.torch_import",
+             "enhanced_unet_tpu_torch.models.unet", "enhanced_unet_tpu_torch.models.segnet",
+             "enhanced_unet_tpu_torch.models.fcn", "enhanced_unet_tpu_torch.models.pspnet",
+             "enhanced_unet_tpu_torch.models.linknet"):
     assert name in walked and name in loaded, name
 print("BOUNDARY OK", len(walked))
 """
@@ -150,6 +153,9 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
         get_model("enhanced_unet")
     with pytest.raises(RuntimeError, match="CUDA"):
         get_model("enhanced_unet", device="cuda")
+    for name in ("unet", "segnet", "linknet_basic"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            get_model(name)
     model = EnhancedUNet(encoder_names=("efficientnet-tiny", "efficientnet-tiny"))
     with pytest.raises(RuntimeError, match="CUDA"):
         Evaluator(model, "enhanced_unet")

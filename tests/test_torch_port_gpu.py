@@ -60,6 +60,16 @@ _CONV_CASES = [
     ((1, 1, 77, 64, 128, True), "wgmma"),           # a 1-row image
     ((4, 256, 256, 32, 32, True), "wgmma"),         # 512-pixel tiles
     ((2, 24, 24, 688, 256, True), "wgmma"),         # 128-pixel tiles, Cout 256
+    # the zoo's shapes, smaller: the UNet decoder's long K (2048 + 1024 at
+    # s16, 512 + 256 at s8), SegNet's 512 -> 512, a ResNet block's second
+    # conv (no ReLU), BasicPSPNet's 1024 -> 128, the 32 -> 16 head stage
+    ((2, 16, 16, 3072, 256, True), "wgmma"),
+    ((2, 32, 32, 768, 128, True), "wgmma"),
+    ((2, 32, 32, 512, 512, True), "wgmma"),
+    ((2, 64, 64, 64, 64, False), "wgmma"),
+    ((2, 16, 16, 256, 256, False), "wgmma"),
+    ((2, 32, 32, 1024, 128, True), "wgmma"),
+    ((2, 128, 128, 32, 16, True), "wgmma"),
 ]
 
 
@@ -885,3 +895,61 @@ def test_predict_model_on_card_launches_k1_and_k2(cuda, tmp_path, monkeypatch, t
     rows = out["predictions"]
     assert [r["filename"] for r in rows] == sorted(os.listdir(images))
     assert len(os.listdir(out["save_dir"])) == 2 * len(rows) + 1
+
+
+# the zoo: model -> whether its request launches the small-Cin kernel (a
+# 3-channel first 3x3 conv) beside wgmma
+_ZOO_SMALLC = {"segnet": True, "unet": False, "unet_basic": True,
+               "enhanced_unet_basic": True, "fcn": False, "fcn_basic": True,
+               "pspnet": False, "pspnet_basic": True, "linknet": False,
+               "linknet_basic": True}
+
+
+@pytest.mark.parametrize("name", sorted(_ZOO_SMALLC))
+def test_zoo_model_served_on_card(cuda, monkeypatch, name):
+    """Each zoo model at full width: served in bf16 through an `Evaluator`
+    on K2 alone (no K1 launch, no plain version of K2), and in fp32 on the
+    card within 1e-4 of the CPU's plain path on the same weights."""
+    import numpy as np
+
+    from enhanced_unet_tpu_torch.config import get_preset
+    from enhanced_unet_tpu_torch.models import get_model
+    from enhanced_unet_tpu_torch.ops.kernels import conv_fused, mbconv
+    from enhanced_unet_tpu_torch.train.evaluator import Evaluator
+
+    def no_plain(*a, **kw):
+        raise AssertionError("the plain version of K2 ran on the card")
+
+    monkeypatch.setattr(conv_fused, "fused_conv3x3_bn_relu_plain", no_plain)
+    k2, k1 = dict(conv_fused.LAUNCHES), dict(mbconv.LAUNCHES)
+    ev = Evaluator(get_model(name, seed=0), name, enable_tta=get_preset(name).enable_tta)
+    imgs = np.random.default_rng(0).uniform(0, 1, (2, 128, 128, 3)).astype(np.float32)
+    masks = ev.predict_semantic_masks(imgs)
+    moved = {k: v - k2[k] for k, v in conv_fused.LAUNCHES.items() if v != k2[k]}
+    assert masks.shape == (2, 128, 128) and set(np.unique(masks)) <= {0, 1, 2}
+    assert set(moved) == ({"conv3x3_bn_act_wgmma", "conv3x3_bn_act_smallc"}
+                          if _ZOO_SMALLC[name] else {"conv3x3_bn_act_wgmma"}), moved
+    assert mbconv.LAUNCHES == k1
+    monkeypatch.undo()
+    x = torch.rand(2, 64, 64, 3, generator=torch.Generator().manual_seed(1))
+    gpu = get_model(name, dtype=torch.float32, device=cuda, seed=3)
+    cpu = get_model(name, dtype=torch.float32, device="cpu", seed=3)
+    before = conv_fused.LAUNCHES["conv3x3_bn_act_f32"]
+    with torch.no_grad():
+        got, _ = gpu(x.to(cuda))
+        want, _ = cpu(x)
+    assert conv_fused.LAUNCHES["conv3x3_bn_act_f32"] > before
+    assert _rel(got.cpu(), want) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_max_pool_with_indices_on_card_takes_the_first_maximum(cuda, dtype):
+    from enhanced_unet_tpu_torch.models import blocks
+
+    x = torch.randint(0, 3, (2, 8, 32, 48), generator=torch.Generator().manual_seed(0))
+    x = x.to(dtype)
+    pooled, idx = blocks.max_pool_with_indices(x.to(cuda))
+    want_pooled, want_idx = blocks.max_pool_with_indices(x)
+    assert torch.equal(pooled.cpu(), want_pooled) and torch.equal(idx.cpu(), want_idx)
+    assert torch.equal(blocks.max_unpool_2x2(pooled, idx).cpu(),
+                       blocks.max_unpool_2x2(want_pooled, want_idx))

@@ -15,7 +15,11 @@ against the JAX package's.
   at tiny width.
 - Weight files are read from a directory, their SHA256 prefix checked.
 - Models trained from scratch raise `ValueError` (JAX's message); the
-  ResNet models, not in the port yet, raise `NotImplementedError`.
+  ResNet models (unet, fcn, pspnet, linknet) take seeded torchvision-layout
+  files, `fc.*` and all four stages, exactly into `model.encoder` (the
+  stages past the model's depth dropped, `convert_resnet` never reads
+  them); `tests/test_torch_port_zoo_api.py` holds them against the JAX
+  package's load.
 """
 
 import hashlib
@@ -252,7 +256,45 @@ def test_models_from_scratch_raise_like_jax(name):
     assert str(ours.value) == str(ref.value)
 
 
+def torchvision_state_dict(variant, seed):
+    """A seeded torchvision-layout ResNet file: every stage and the
+    classifier `fc`, no `num_batches_tracked` (torchvision's files predate
+    it)."""
+    from enhanced_unet_tpu_torch.models.encoders import ResNetEncoder
+
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for k, v in ResNetEncoder(variant, depth=5).state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        sd[k] = (torch.rand(v.shape, generator=g) + 0.5 if k.endswith("running_var")
+                 else torch.randn(v.shape, generator=g))
+    width = 2048 if variant == "resnet50" else 512
+    sd["fc.weight"] = torch.randn(1000, width, generator=g)
+    sd["fc.bias"] = torch.randn(1000, generator=g)
+    return sd
+
+
 @pytest.mark.parametrize("name", ["unet", "fcn", "pspnet", "linknet"])
-def test_resnet_models_are_not_ported_yet(name):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        initialize_pretrained(None, name, state_dicts={})
+def test_resnet_models_load_torchvision_files(name):
+    variant = next(iter(required_weights(name)))
+    model = get_model(name, dtype=torch.float32, device="cpu", seed=2)
+    state = create_train_state(model, get_preset(name), 1, device="cpu")
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    sd = torchvision_state_dict(variant, 5)
+    _, imported = initialize_pretrained(state, name, state_dicts={variant: sd},
+                                        log=lambda *a: None)
+    assert imported == [variant]
+    enc = model.model["encoder"]
+    own = enc.state_dict()
+    assert all(torch.equal(v, sd[k]) for k, v in own.items()
+               if not k.endswith("num_batches_tracked"))
+    assert {k.split(".")[0] for k in sd} - {k.split(".")[0] for k in own} == (
+        {"fc"} | {f"layer{i}" for i in range(enc.n_stages + 1, 5)})
+    for k, v in model.state_dict().items():
+        if not k.startswith("model.encoder."):
+            assert torch.equal(v, before[k]), k
+    bad = dict(sd)
+    bad["conv1.weight"] = bad["conv1.weight"][:, :2]
+    with pytest.raises(ValueError, match="another shape"):
+        initialize_pretrained(state, name, state_dicts={variant: bad})
