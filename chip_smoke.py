@@ -179,6 +179,35 @@ Phases (any failure exits non-zero):
     phase 7's folder: `train_model` for one epoch with the full-Evaluator
     gate (K2 launched), `predict_model` batched on its `best_model` (a row
     per micrograph, K2 launched, no plain version);
+9b. the CLI and the data axis, inside phase 7's temporary directory, the
+    flagship and unet at full width, bf16: (a) `cli.main` in-process on
+    phase 7's folder, every count set to 0 before each call: `--mode
+    train_eval --epochs 1` (rc 0; both models evaluated, not isolated as
+    zeros, every metric finite; the CSV header `CSV_COLUMNS`; the
+    checkpoints; K1's `nhwc` and K2's wgmma/small-Cin kernels launched,
+    no plain version of K1 or K2; the comparison figures where matplotlib
+    imports, else a line saying they were not rendered), `--mode predict
+    --tiled` over the 3 test micrographs at full resolution (a row each),
+    `--mode eval --eval-batch 2`, `--mode manifest` (the manifest's lines)
+    and, only with matplotlib, `--mode visualize`; each call's seconds;
+    (b) the data-parallel step at world size 1 over NCCL against the plain
+    step from the same state, 2 x 640^2 (phase 6a's batch), three steps a
+    path, plain / data-parallel / plain: the step times, the median
+    difference and the reductions' own wall ms (the cost of the reductions
+    on one card), the first step's clipped gradient's relative L2 between
+    the paths beside the plain step's own run-to-run difference (at most
+    10 times it, or 1e-5), and the same for the update after three steps;
+    (d) `tiled_inference_sharded` at world size 1 on one seeded 2048^2
+    micrograph, tile 512, overlap 64, twice (the first call, then warm),
+    against `ops/tiling.tiled_inference` on the same serving weights
+    (within 5e-2 of the probabilities, each pixel's class the same on
+    0.9999 of them), K1 and K2 launched and no plain version; (c) two
+    spawned processes sharing the card over gloo (the only place the
+    cross-rank reduction runs on CUDA tensors), each with its own 2 x
+    640^2 batch, `replicate_state` from differently seeded weights, two
+    steps: every parameter and running statistic bitwise equal across the
+    ranks, each reported loss the mean of the ranks' local losses; their
+    times, labelled as two processes on one card;
 10. a `{"kernels": [...]}` line, each entry's launches counted in the run
     whose time and shape it reports (the serving kernels' also per tiled
     request, `tiled_launches`; K2's also per zoo request, `zoo_launches`),
@@ -1453,6 +1482,389 @@ def phase9_zoo(card: str, counters, dev, tmp: str, data_dir: str, k2_row, covere
     return zoo_launches
 
 
+CLI_MODELS = ("enhanced_unet", "unet")   # phase 9b (a): the CLI's models
+DP_STEPS = 3                             # phase 9b (b): train steps a path
+RANK_STEPS = 2                           # phase 9b (c): train steps a rank
+
+
+def recording_mesh(mesh, local: list, reduce_ms: list):
+    """`mesh`, recording into `local` this rank's loss before each reduction
+    (the one 0-d tensor reduced) and into `reduce_ms` the reduction's wall
+    ms, synchronised before and after."""
+    import torch
+
+    from enhanced_unet_tpu_torch.parallel import Mesh
+
+    def sync():
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+
+    class RecordingMesh(Mesh):
+        def all_mean_(self, tensors):
+            local.append(next(t for t in tensors if t.dim() == 0).item())
+            sync()
+            t0 = time.perf_counter()
+            super().all_mean_(tensors)
+            sync()
+            reduce_ms.append(1e3 * (time.perf_counter() - t0))
+
+    return RecordingMesh(**vars(mesh))
+
+
+def two_rank_steps(mesh, out_dir: str, size: int, pad: int) -> None:
+    """9b (c), one of two ranks sharing the card over gloo: the flagship
+    (full width, bf16) replicated from rank 0, then
+    RANK_STEPS data-parallel train steps on this rank's own 2 x `pad`^2
+    batch.  Writes the final state dict, the reported and the local (pre-
+    reduction) losses, and the wall ms of each step, of each reduction and
+    of the replication, to `out_dir/rank<r>.pt`."""
+    import os
+
+    import torch
+
+    from enhanced_unet_tpu_torch.config import get_preset
+    from enhanced_unet_tpu_torch.models import get_model
+    from enhanced_unet_tpu_torch.parallel import replica_seed, replicate_state
+    from enhanced_unet_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    def sync():
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+
+    local, reduce_ms = [], []
+    mesh = recording_mesh(mesh, local, reduce_ms)
+    cfg = get_preset("enhanced_unet")
+    model = get_model("enhanced_unet", seed=mesh.rank, device=mesh.device)
+    state = create_train_state(model, cfg, STEPS_PER_EPOCH, device=mesh.device)
+    sync()
+    t0 = time.perf_counter()
+    state = replicate_state(state, mesh)      # the ranks were seeded apart
+    sync()
+    replicate_ms = 1e3 * (time.perf_counter() - t0)
+    imgs, masks, valid = (torch.from_numpy(a).to(mesh.device)
+                          for a in blob_batch(2, size, pad, 21 + mesh.rank))
+    gen = torch.Generator(device=mesh.device).manual_seed(replica_seed(1, mesh))
+    step = make_train_step(cfg, mesh)
+    losses, step_ms = [], []
+    for _ in range(RANK_STEPS):
+        sync()
+        t0 = time.perf_counter()
+        state, out = step(state, imgs, masks, valid, gen)
+        losses.append(out["loss"].item())
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    torch.save({"state": {k: v.cpu() for k, v in model.state_dict().items()},
+                "losses": losses, "local": local, "step_ms": step_ms, "reduce_ms": reduce_ms,
+                "replicate_ms": replicate_ms, "device": str(mesh.device)},
+               os.path.join(out_dir, f"rank{mesh.rank}.pt"))
+
+
+def phase9b_cli_and_data_axis(card: str, counters, dev, tmp: str, data_dir: str) -> dict:
+    """9b. The CLI and the data axis on the card, in phase 7's temporary
+    directory and folder of micrographs (see the module docstring).
+    Returns the readings."""
+    import contextlib
+    import csv
+    import io
+    import os
+
+    import numpy as np
+    import torch
+
+    from enhanced_unet_tpu_torch import cli
+    from enhanced_unet_tpu_torch.config import get_preset
+    from enhanced_unet_tpu_torch.convert.pretrained import required_weights
+    from enhanced_unet_tpu_torch.data.dataset import CellDataset
+    from enhanced_unet_tpu_torch.models import get_model
+    from enhanced_unet_tpu_torch.ops.kernels import conv_fused, mbconv
+    from enhanced_unet_tpu_torch.ops.tiling import tile_grid, tiled_inference
+    from enhanced_unet_tpu_torch.parallel import make_mesh, spawn, tiled_inference_sharded
+    from enhanced_unet_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    try:
+        import matplotlib  # noqa: F401
+        figures = True
+    except ImportError as err:
+        figures = False
+        print(f"[{card}] phase 9b: matplotlib does not import ({err}): the CLI's figures "
+              "are not rendered and not checked, and --mode visualize is not run")
+
+    # ---- (a) the CLI, in-process, on phase 7's folder
+    work = os.path.join(tmp, "cli")
+    test_dir = os.path.join(work, "test_images")
+    os.makedirs(test_dir)
+    for name in CellDataset(data_dir, "test").files:
+        os.link(os.path.join(data_dir, name), os.path.join(test_dir, name))
+    plain = {"conv3x3_bn_act": 0, "mbconv": 0}
+    real_plain = (conv_fused.fused_conv3x3_bn_relu_plain, mbconv.mbconv_infer_nchw_plain)
+
+    def counted(name, fn):
+        def run(*a, **kw):
+            plain[name] += 1
+            return fn(*a, **kw)
+        return run
+
+    def call(argv, what):
+        reset(counters)
+        plain.update(conv3x3_bn_act=0, mbconv=0)
+        t0 = time.perf_counter()
+        stdout = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(stdout):
+                rc = cli.main(argv, device=dev)
+        finally:
+            tail = stdout.getvalue().splitlines()[-12:]
+            print(f"[{card}] cli {what}, the last lines it printed:\n  " + "\n  ".join(tail))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: v for c in counters for k, v in c.items() if v}
+        check(rc == 0, f"the CLI's {what} returned 0 ({rc})")
+        print(f"[{card}] cli {what}: {seconds:.2f} s, launches {json.dumps(launches)}, "
+              f"plain-version calls {plain}")
+        out.setdefault("cli_s", {})[what] = seconds
+        return launches, stdout.getvalue()
+
+    def k1_k2(launches, what):
+        check(launches.get("mbconv_nhwc_pass1", 0) > 0
+              and launches.get("mbconv_nhwc_pass2", 0) > 0, f"{what} launched K1")
+        check(launches.get("conv3x3_bn_act_wgmma", 0)
+              + launches.get("conv3x3_bn_act_smallc", 0) > 0, f"{what} launched K2")
+        check(plain == {"conv3x3_bn_act": 0, "mbconv": 0},
+              f"{what} ran no plain version of K1 or K2 ({plain})")
+
+    def results_of(results_dir):
+        with open(os.path.join(results_dir, "evaluation_results.json")) as f:
+            results = json.load(f)
+        check(list(results) == list(CLI_MODELS), f"a row per model ({list(results)})")
+        for name, r in results.items():
+            # the zeros of an isolated failure have neither these keys nor a
+            # background IoU; sem_mean_iou (live and dead) may be 0 after one
+            # epoch from seeded weights
+            check({"sem_background_iou", "gt_live_count"} <= set(r)
+                  and r["sem_background_iou"] > 0, f"{name} was evaluated, not isolated")
+            check(all(math.isfinite(v) for v in r.values() if isinstance(v, (int, float))),
+                  f"{name}'s metrics are finite")
+        return results
+
+    models = list(CLI_MODELS)
+    base = ["--data-dir", data_dir, "--max-size", str(ENTRY_MAX_SIZE), "--models", *models]
+    cwd = os.getcwd()
+    os.chdir(work)       # the CLI's default checkpoint and results folders
+    conv_fused.fused_conv3x3_bn_relu_plain = counted("conv3x3_bn_act", real_plain[0])
+    mbconv.mbconv_infer_nchw_plain = counted("mbconv", real_plain[1])
+    try:
+        launches, _ = call(["--mode", "train_eval", "--epochs", "1", *base,
+                            "--results-dir", "results"], "train_eval")
+        k1_k2(launches, "the CLI's train_eval")
+        results = results_of("results")
+        with open(os.path.join("results", "evaluation_results.csv"), encoding="utf-8-sig",
+                  newline="") as f:
+            rows = list(csv.reader(f))
+        check(rows[0] == [c for c, _ in cli.CSV_COLUMNS], "the CSV header is CSV_COLUMNS")
+        check([r[0] for r in rows[1:]] == models, "the CSV has a row per model")
+        for name in models:
+            check(os.path.isdir(os.path.join("checkpoints", name, "best_model")),
+                  f"train_eval wrote {name}'s best_model")
+        pngs = sorted(f for f in os.listdir("results") if f.endswith(".png"))
+        if figures:
+            check("model_comparison.png" in pngs, "the comparison figures were written")
+        else:
+            print(f"[{card}] cli train_eval: comparison figures not rendered (no "
+                  f"matplotlib); PNGs in results/: {pngs}")
+        out["cli_results"] = {n: {k: results[n][k] for k in ("sem_mean_iou", "sem_background_iou")}
+                              for n in models}
+
+        launches, _ = call(["--mode", "predict", "--tiled", "--data-dir", test_dir,
+                            "--max-size", "2048", "--models", *models,
+                            "--results-dir", "predict"], "predict --tiled")
+        k1_k2(launches, "the CLI's predict --tiled")
+        for name in models:
+            with open(os.path.join("predict", name, "predictions", "predictions.csv")) as f:
+                rows = list(csv.DictReader(f))
+            check([r["filename"] for r in rows] == sorted(os.listdir(test_dir)),
+                  f"predict wrote a row per micrograph for {name}")
+
+        launches, _ = call(["--mode", "eval", "--eval-batch", "2", *base,
+                            "--results-dir", "eval"], "eval --eval-batch 2")
+        k1_k2(launches, "the CLI's eval --eval-batch 2")
+        evaluated = results_of("eval")
+        print(f"[{card}] cli sem_mean_iou: train_eval "
+              f"{[results[n]['sem_mean_iou'] for n in models]}, eval --eval-batch 2 "
+              f"{[evaluated[n]['sem_mean_iou'] for n in models]}")
+
+        _, printed = call(["--mode", "manifest", "--models", *models], "manifest")
+        want = "".join(
+            f"{name}: {variant}  file={e['file']}  sha256[:8]={e['sha256_prefix']}\n"
+            f"  url={e['url']}\n"
+            for name in models for variant, e in required_weights(name).items())
+        check(printed == want, "manifest printed the weight files of the models")
+
+        if figures:
+            call(["--mode", "visualize", *base, "--results-dir", "results"], "visualize")
+        else:
+            print(f"[{card}] cli visualize: skipped (no matplotlib)")
+    finally:
+        conv_fused.fused_conv3x3_bn_relu_plain, mbconv.mbconv_infer_nchw_plain = real_plain
+        os.chdir(cwd)
+
+    # ---- (b) the data-parallel step at world size 1 (NCCL) against the plain step
+    size, pad = TRAIN_SIZE, TRAIN_PAD
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    mesh = make_mesh(1, init_dir=os.path.join(tmp, "cli"),
+                     device=None if dev.type == "cuda" else dev)
+    try:
+        cfg = get_preset("enhanced_unet")
+        model = get_model("enhanced_unet", seed=0, device=dev)
+        start = {k: v.clone() for k, v in model.state_dict().items()}
+        imgs, masks, valid = (torch.from_numpy(a).to(dev) for a in blob_batch(2, size, pad, 11))
+        names = [n for n, _ in model.named_parameters()]
+
+        reduce_ms = []
+
+        def run(with_mesh):
+            """DP_STEPS steps from the same state and draws: the step wall
+            ms, the first step's clipped gradient and the update."""
+            model.load_state_dict(start)
+            state = create_train_state(model, cfg, STEPS_PER_EPOCH, device=dev)
+            step = make_train_step(cfg, recording_mesh(mesh, [], reduce_ms) if with_mesh
+                                   else None)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            times = []
+            for i in range(DP_STEPS):
+                sync()
+                t0 = time.perf_counter()
+                state, _ = step(state, imgs, masks, valid, gen)
+                sync()
+                times.append(1e3 * (time.perf_counter() - t0))
+                if i == 0:
+                    grad = torch.cat([p.grad.reshape(-1).float()
+                                      for p in model.parameters() if p.grad is not None])
+            params = dict(model.named_parameters())
+            update = torch.cat([(params[n].detach() - start[n]).reshape(-1).float()
+                                for n in names])
+            return grad, update, times
+
+        def rel(a, b):
+            return ((a.double() - b.double()).norm() / b.double().norm()).item()
+
+        grad_a, upd_a, plain_ms = run(False)
+        grad_d, upd_d, dp_ms = run(True)
+        grad_b, upd_b, plain_ms_b = run(False)
+        rels = {"grad": rel(grad_d, grad_a), "grad_plain": rel(grad_b, grad_a),
+                "update": rel(upd_d, upd_a), "update_plain": rel(upd_b, upd_a)}
+        del grad_a, grad_b, grad_d, upd_a, upd_b, upd_d
+        plain_ms += plain_ms_b
+        warm = float(np.median(dp_ms[1:])) - float(np.median(plain_ms[1:DP_STEPS]
+                                                            + plain_ms[DP_STEPS + 1:]))
+        print(f"[{card}] dp step, world size 1 over NCCL, 2 x {pad}^2, {DP_STEPS} steps a "
+              f"path (plain, dp, plain): step wall ms dp {[round(t, 1) for t in dp_ms]}, "
+              f"plain {[round(t, 1) for t in plain_ms]}; median dp - plain after the first "
+              f"step {warm:.2f} ms; the reductions alone (synchronised around) "
+              f"{[round(t, 2) for t in reduce_ms]} ms; the first step's clipped gradient rel "
+              f"L2 dp vs plain {rels['grad']:.3e}, plain vs plain {rels['grad_plain']:.3e}; "
+              f"the update after {DP_STEPS} steps dp vs plain {rels['update']:.3e}, plain "
+              f"vs plain {rels['update_plain']:.3e} (AdamW's early steps are about lr x "
+              f"sign(g): a gradient's noise flips whole steps)")
+        check(math.isfinite(rels["grad"]) and rels["grad"] <= max(10 * rels["grad_plain"], 1e-5),
+              "the dp step at world size 1 takes the plain step's gradient (within 10x the "
+              "plain step's own run-to-run difference, or 1e-5)")
+        out["dp"] = {"dp_ms": dp_ms, "plain_ms": plain_ms, "warm_difference_ms": warm,
+                     "reduce_ms": reduce_ms, **rels}
+        del model, start, imgs, masks, valid
+
+        # ---- (d) tiled_inference_sharded at world size 1 against tiled_inference
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        serve = serving_model(device=dev).eval()
+        image = torch.from_numpy(synthetic_images(1, TILED_SIZE, 17)[0]).to(dev)
+
+        def apply_fn(tiles):
+            return serve(tiles)[0]
+
+        with torch.no_grad():
+            conv_fused.fused_conv3x3_bn_relu_plain = counted("conv3x3_bn_act", real_plain[0])
+            mbconv.mbconv_infer_nchw_plain = counted("mbconv", real_plain[1])
+            try:
+                sharded_ms, single_ms = [], []
+                for _ in range(2):                           # the first call, then warm
+                    reset(counters)
+                    plain.update(conv3x3_bn_act=0, mbconv=0)
+                    sync()
+                    t0 = time.perf_counter()
+                    sharded = tiled_inference_sharded(apply_fn, image, mesh, tile=TILE,
+                                                      overlap=TILE_OVERLAP)
+                    sync()
+                    sharded_ms.append(1e3 * (time.perf_counter() - t0))
+                    launches = {k: v for c in counters for k, v in c.items() if v}
+                    k1_k2(launches, "tiled_inference_sharded")
+                    t0 = time.perf_counter()
+                    single = tiled_inference(apply_fn, image, tile=TILE, overlap=TILE_OVERLAP)
+                    sync()
+                    single_ms.append(1e3 * (time.perf_counter() - t0))
+            finally:
+                conv_fused.fused_conv3x3_bn_relu_plain = real_plain[0]
+                mbconv.mbconv_infer_nchw_plain = real_plain[1]
+        single = single.cpu()
+        err = (sharded - single).abs().max().item()
+        agree = (sharded.argmax(-1) == single.argmax(-1)).double().mean().item()
+        n_tiles = len(tile_grid(TILED_SIZE, TILED_SIZE, TILE, TILE_OVERLAP)[2])
+        print(f"[{card}] tiled_inference_sharded, world size 1, one {TILED_SIZE}^2 micrograph, "
+              f"tile {TILE} overlap {TILE_OVERLAP} ({n_tiles} tiles in one forward, no TTA): "
+              f"wall ms {[round(t, 1) for t in sharded_ms]} (first, warm), launches a call "
+              f"{json.dumps(launches)}; one-device tiled_inference (batches of 8) "
+              f"{[round(t, 1) for t in single_ms]}; max |prob diff| {err:.3e} "
+              f"(tol 5e-2), pixels of the same class {agree:.6f} (tol 0.9999)")
+        check(tuple(sharded.shape) == (TILED_SIZE, TILED_SIZE, 3)
+              and bool(torch.isfinite(sharded).all()), "finite sharded probabilities")
+        check(err <= 5e-2, "the sharded tiles' probabilities within 5e-2 of one device's")
+        check(agree >= 0.9999, "the sharded tiles' classes agree on 0.9999 of pixels")
+        out["tiled"] = {"sharded_ms": sharded_ms, "single_ms": single_ms, "err": err,
+                        "agree": agree, "launches": launches}
+        del serve, image
+    finally:
+        torch.distributed.destroy_process_group()
+
+    # ---- (c) two ranks on the one card over gloo
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    ranks_dir = os.path.join(tmp, "ranks")
+    os.makedirs(ranks_dir)
+    t0 = time.perf_counter()
+    spawn(two_rank_steps, 2, (ranks_dir, size, pad),
+          device="cuda:0" if dev.type == "cuda" else dev, backend="gloo",
+          init_dir=ranks_dir, timeout=900)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(ranks_dir, f"rank{r}.pt")) for r in range(2)]
+    a, b = ranks[0]["state"], ranks[1]["state"]
+    unequal = [k for k in a if not torch.equal(a[k], b[k])]
+    means = [(l0 + l1) / 2 for l0, l1 in zip(ranks[0]["local"], ranks[1]["local"])]
+    print(f"[{card}] two processes sharing one card, gloo on {ranks[0]['device']} tensors, "
+          f"2 x {pad}^2 each, {RANK_STEPS} steps (no multi-GPU figure): spawn to join "
+          f"{spawn_s:.1f} s; replicate_state ms {[round(r['replicate_ms'], 1) for r in ranks]}; "
+          f"step wall ms {[[round(t, 1) for t in r['step_ms']] for r in ranks]}; reduction "
+          f"wall ms {[[round(t, 1) for t in r['reduce_ms']] for r in ranks]}; local losses "
+          f"{[r['local'] for r in ranks]}, reported {[r['losses'] for r in ranks]}; tensors "
+          f"unequal across the ranks {len(unequal)} of {len(a)}")
+    check(not unequal, f"every parameter and running statistic bitwise equal ({unequal[:3]})")
+    for r in ranks:
+        check(all(abs(x - m) <= 1e-6 * abs(m) for x, m in zip(r["losses"], means)),
+              "each rank's reported loss is the mean of the local losses")
+    out["two_ranks"] = {"spawn_s": spawn_s, "step_ms": [r["step_ms"] for r in ranks],
+                        "reduce_ms": [r["reduce_ms"] for r in ranks],
+                        "replicate_ms": [r["replicate_ms"] for r in ranks]}
+    print(f"[{card}] phase 9b (the CLI and the data axis): "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2352,11 +2764,13 @@ def main(argv=None) -> int:
     check(grad32 <= grad_tol, "tiny fp32 gradients within 1e-3 (or the fp32 noise) of the cpu")
     check(grad64 <= 1e-4, "tiny fp64 gradients within 1e-4 of the cpu")
 
-    # ---- 7. the training entry point; 9. the zoo, in its folder -------------
-    zoo_launches = phase7_training_entry(
+    # ---- 7. the training entry point; 9. the zoo and 9b. the CLI and the
+    # data axis, in its folder
+    zoo_launches, _ = phase7_training_entry(
         card, counters, dev,
-        after=lambda tmp, data_dir: phase9_zoo(card, counters, dev, tmp, data_dir, k2_row,
-                                               set(k2_calls)))
+        after=lambda tmp, data_dir: (
+            phase9_zoo(card, counters, dev, tmp, data_dir, k2_row, set(k2_calls)),
+            phase9b_cli_and_data_axis(card, counters, dev, tmp, data_dir)))
 
     # ---- 10. report ------------------------------------------------------
     meta = {

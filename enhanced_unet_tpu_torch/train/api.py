@@ -11,8 +11,9 @@ Per-model epochs, batch and patience come from the preset; every
 default) decides whether the state is the best so far; early stopping
 after `early_stop_min_epoch`; `last_model` always written, for `resume`.
 Every entry point runs on `device` (None: the CUDA card, raising without
-one).  Training over more than one device is not ported yet (it raises
-`NotImplementedError`).
+one).  `train_model(num_devices=N)` trains data-parallel, one process per
+device (`parallel/`): it starts N workers itself, or, inside a process
+group that is already initialised (`torchrun`), runs as its rank.
 """
 
 from __future__ import annotations
@@ -40,6 +41,12 @@ from enhanced_unet_tpu_torch.data.loader import BatchLoader
 from enhanced_unet_tpu_torch.device import resolve_device
 from enhanced_unet_tpu_torch.metrics.semantic import metrics_from_confusion
 from enhanced_unet_tpu_torch.models import get_model
+from enhanced_unet_tpu_torch.parallel import (
+    make_mesh,
+    replica_seed,
+    replicate_state,
+    spawn,
+)
 from enhanced_unet_tpu_torch.postprocess.instances import semantic_to_instances
 from enhanced_unet_tpu_torch.train.checkpoint import (
     checkpoint_exists,
@@ -95,6 +102,21 @@ def quick_val_miou(state: TrainState, cfg: TrainConfig, loader,
     return metrics_from_confusion(np.concatenate(cms).sum(axis=0))
 
 
+def _train_rank(mesh, model_name: str, kwargs: Dict) -> None:
+    """One spawned rank of `train_model(num_devices=N)`."""
+    train_model(model_name, device=mesh.device, **kwargs)
+
+
+def _from_rank0(mesh, values):
+    """Rank 0's `values` (floats) on every rank of `mesh` (None: as they
+    are), so that every rank takes rank 0's branch."""
+    if mesh is None:
+        return values
+    t = torch.tensor(values, dtype=torch.float64, device=mesh.device)
+    mesh.broadcast_([t])
+    return t.tolist()
+
+
 def train_model(model_name: str, data_dir: str = "data", num_epochs: int = 50,
                 skip_training: bool = False, resume: bool = False,
                 checkpoint_dir: str = "checkpoints", max_size: int = 640,
@@ -114,16 +136,37 @@ def train_model(model_name: str, data_dir: str = "data", num_epochs: int = 50,
     `quick_val_miou`.  `pretrained_dir` (not on resume) holds the
     ImageNet encoder files of `convert.pretrained.WEIGHT_MANIFEST`, loaded
     before the first step; a model without pretrained encoders ignores
-    it."""
+    it.
+
+    `num_devices` (or `cfg.num_devices`) N > 1 trains data-parallel, one
+    process per device, each with its own `cfg.batch_size` rows (the global
+    batch is N times that): with no process group initialised, N new
+    workers (`parallel.spawn`: the cards `cuda:0..N-1`, or N CPU processes
+    for `device="cpu"`; the arguments are pickled, `log` included), else
+    this process as its rank of the group, whose size must be N.  Rank 0
+    alone runs the gate, logs and writes the checkpoints; the other ranks
+    wait for it in `Mesh.barrier` and take its decisions."""
     cfg = cfg or get_preset(model_name, num_epochs=num_epochs, data_dir=data_dir)
     n_dev = int(num_devices if num_devices is not None else cfg.num_devices)
-    if n_dev > 1:
-        raise NotImplementedError(
-            f"num_devices={n_dev}: multi-device training is not ported yet "
-            "(ROADMAP.md, Queue 1 item 5)")
     device = resolve_device(device)
     ckpt_path = os.path.join(checkpoint_dir, model_name, "best_model")
     last_path = os.path.join(checkpoint_dir, model_name, "last_model")
+    group = torch.distributed.is_available() and torch.distributed.is_initialized()
+    if n_dev > 1 and not group:
+        spawn(_train_rank, n_dev, (model_name, dict(
+            data_dir=data_dir, num_epochs=num_epochs, skip_training=skip_training,
+            resume=resume, checkpoint_dir=checkpoint_dir, max_size=max_size, cfg=cfg,
+            use_full_evaluator_gate=use_full_evaluator_gate, dtype=dtype,
+            num_devices=n_dev, pretrained_dir=pretrained_dir, log=log)), device=device)
+        return ckpt_path
+    mesh = make_mesh(n_dev, device=device) if group else None
+    if mesh is not None:
+        device = mesh.device
+        if mesh.size == 1:
+            mesh = None
+    lead = mesh is None or mesh.rank == 0
+    if not lead:
+        log = lambda *args: None  # noqa: E731
     os.makedirs(os.path.dirname(ckpt_path), exist_ok=True)
 
     if skip_training and checkpoint_exists(ckpt_path):
@@ -133,6 +176,7 @@ def train_model(model_name: str, data_dir: str = "data", num_epochs: int = 50,
     pad_shape = _pad_shape(max_size)
     train_loader = BatchLoader(CellDataset(data_dir, split="train", max_size=max_size),
                                cfg.batch_size, pad_shape, train=True, seed=cfg.seed,
+                               process_shard=None if mesh is None else (mesh.rank, mesh.size),
                                device=device)
     # the full Evaluator enhances each image itself at native size, so its
     # loader skips the device preprocess
@@ -149,9 +193,9 @@ def train_model(model_name: str, data_dir: str = "data", num_epochs: int = 50,
         else:
             log(f"{model_name} has no pretrained encoders (reference trains it from "
                 "scratch); ignoring --pretrained-dir")
-    train_step = make_train_step(cfg)
+    train_step = make_train_step(cfg, mesh)
     eval_step = None if use_full_evaluator_gate else make_eval_step(cfg)
-    generator = torch.Generator(device=device).manual_seed(cfg.seed + 1)
+    generator = torch.Generator(device=device).manual_seed(replica_seed(cfg.seed + 1, mesh))
 
     history = {
         "train_loss": [], "val_loss": [], "val_miou": [],
@@ -180,6 +224,15 @@ def train_model(model_name: str, data_dir: str = "data", num_epochs: int = 50,
                     history[k] = list(saved_history[k])
             log(f"Resuming from {resume_from} at epoch {start_epoch} "
                 f"(best mIoU {best_miou:.4f})")
+    if mesh is not None:
+        state = replicate_state(state, mesh)     # after any resume
+
+    def persist(path, *args):
+        # rank 0 writes; every rank waits for the write
+        if lead:
+            save_checkpoint(path, *args)
+        if mesh is not None:
+            mesh.barrier()
 
     gate_evaluator = None  # one Evaluator, on its own copy of the model
 
@@ -205,36 +258,41 @@ def train_model(model_name: str, data_dir: str = "data", num_epochs: int = 50,
             f"lr={lr_table[epoch]:.6f} ({dt:.1f}s)")
 
         if (epoch + 1) % cfg.eval_every_epochs == 0:
-            if use_full_evaluator_gate:
-                if gate_evaluator is None:
-                    gate_evaluator = Evaluator(copy.deepcopy(state.model), model_name,
-                                               enable_tta=cfg.enable_tta, verbose=False,
-                                               device=device)
-                gate_evaluator.update_state(state)
-                val = gate_evaluator.evaluate(val_loader)
-            else:
-                val = quick_val_miou(state, cfg, val_loader, eval_step)
+            val_iou = 0.0
+            if lead:
+                if use_full_evaluator_gate:
+                    if gate_evaluator is None:
+                        gate_evaluator = Evaluator(copy.deepcopy(state.model), model_name,
+                                                   enable_tta=cfg.enable_tta, verbose=False,
+                                                   device=device)
+                    gate_evaluator.update_state(state)
+                    val = gate_evaluator.evaluate(val_loader)
+                else:
+                    val = quick_val_miou(state, cfg, val_loader, eval_step)
 
-            # gradient magnitudes on the last train batch (the gradient-flow plot)
-            if last_batch is not None:
-                history["grad_norms"] = compute_grad_norms(
-                    state, last_batch["images"], last_batch["semantic_masks"],
-                    last_batch["valid_mask"], cfg)
-            val_iou = val.get("sem_mean_iou", 0.0)
-            history["val_miou"].append(val_iou)
-            history["val_live_iou"].append(val.get("sem_live_iou", 0.0))
-            history["val_dead_iou"].append(val.get("sem_dead_iou", 0.0))
-            history["val_dice"].append([val.get("sem_live_dice", 0.0),
-                                        val.get("sem_dead_dice", 0.0)])
-            history["val_loss"].append(loss)
-            history["epoch_axis"].append(epoch + 1)
-            log(f"  val mIoU={val_iou:.4f} live={val.get('sem_live_iou', 0):.4f} "
-                f"dead={val.get('sem_dead_iou', 0):.4f}")
+                # gradient magnitudes on the last train batch (the gradient-flow plot)
+                if last_batch is not None:
+                    history["grad_norms"] = compute_grad_norms(
+                        state, last_batch["images"], last_batch["semantic_masks"],
+                        last_batch["valid_mask"], cfg)
+                val_iou = val.get("sem_mean_iou", 0.0)
+                history["val_miou"].append(val_iou)
+                history["val_live_iou"].append(val.get("sem_live_iou", 0.0))
+                history["val_dead_iou"].append(val.get("sem_dead_iou", 0.0))
+                history["val_dice"].append([val.get("sem_live_dice", 0.0),
+                                            val.get("sem_dead_dice", 0.0)])
+                history["val_loss"].append(loss)
+                history["epoch_axis"].append(epoch + 1)
+                log(f"  val mIoU={val_iou:.4f} live={val.get('sem_live_iou', 0):.4f} "
+                    f"dead={val.get('sem_dead_iou', 0):.4f}")
+            if mesh is not None:
+                mesh.barrier()      # the others wait out rank 0's gate here
+            val_iou, loss = _from_rank0(mesh, [val_iou, loss])
 
             if val_iou > best_miou:
                 best_miou, best_loss = val_iou, loss
                 patience_counter = 0
-                save_checkpoint(ckpt_path, state, epoch + 1, best_miou, best_loss, history)
+                persist(ckpt_path, state, epoch + 1, best_miou, best_loss, history)
                 log(f"  saved best (mIoU {best_miou:.4f})")
             else:
                 patience_counter += 1
@@ -245,10 +303,10 @@ def train_model(model_name: str, data_dir: str = "data", num_epochs: int = 50,
 
     # the final state always, for resume; best_model keeps the gate's choice
     final_epoch = min(epoch + 1, cfg.num_epochs) if cfg.num_epochs else 0
-    save_checkpoint(last_path, state, final_epoch, best_miou, best_loss, history)
-    if not checkpoint_exists(ckpt_path):
+    persist(last_path, state, final_epoch, best_miou, best_loss, history)
+    if not _from_rank0(mesh, [float(checkpoint_exists(ckpt_path))])[0]:
         # never validated above 0.0: the final state stands as the best
-        save_checkpoint(ckpt_path, state, final_epoch, best_miou, best_loss, history)
+        persist(ckpt_path, state, final_epoch, best_miou, best_loss, history)
     return ckpt_path
 
 
@@ -353,7 +411,8 @@ def evaluate_model(model_name: str, data_dir: str = "data",
 
     The checkpoint is the port's checkpoint directory (`train.checkpoint`),
     a reference `.pth`/`.pt` file (`convert.torch_import`), or absent, which
-    evaluates the seeded random weights with a warning.  `tiled=True`
+    evaluates the seeded random weights with a warning.  Without
+    matplotlib the figures are left out, with a warning.  `tiled=True`
     serves at full resolution through `tile` windows `overlap` pixels
     apart; `eval_batch_size > 1` sends same-shape images through the device
     together (the same metrics)."""
@@ -384,8 +443,13 @@ def evaluate_model(model_name: str, data_dir: str = "data",
                           tiled=tiled, tile=tile, overlap=overlap)
     results = evaluator.evaluate(val_loader)
 
+    visualizer = None
     if generate_visualizations:
-        visualizer = Visualizer(save_dir=save_dir)
+        try:
+            visualizer = Visualizer(save_dir=save_dir)
+        except ImportError as e:  # no matplotlib: the results without the figures
+            log(f"  warning: figures not rendered: {e}")
+    if visualizer is not None:
         history = meta.get("history", {})
         if history.get("train_loss"):
             plot_history = _plot_history(history)

@@ -24,7 +24,13 @@ step over the whole parameter list), with optax's semantics for
 
 Parameters without a gradient (the UNet++ head block's never-called
 `attention1`) are left out of the norm and the update, as the JAX parameter
-tree has no such leaves.  Data parallelism is not ported.
+tree has no such leaves.
+
+With a mesh (`parallel.make_mesh`), the step is one data-parallel replica's,
+the JAX step with `axis_name`: between the backward and the update, one
+all-reduce takes the mean over the ranks of the gradients (before the clip,
+as `pmean` precedes `tx.update`), the loss and the BatchNorm running
+statistics that this rank's forward has just updated.
 """
 
 from __future__ import annotations
@@ -142,13 +148,15 @@ def create_train_state(model: nn.Module, cfg: TrainConfig, steps_per_epoch: int,
                       opt_state=tx.init(dict(model.named_parameters())), tx=tx)
 
 
-def make_train_step(cfg: TrainConfig):
+def make_train_step(cfg: TrainConfig, mesh=None):
     """`train_step(state, images, masks, valid, generator) -> (state,
     {"loss": ...})`: images [B,H,W,3] fp32 in [0, 1], masks [B,H,W] int,
     valid [B,H,W] bool, all on the model's device; `generator` (on that
     device) draws the dropout and stochastic-depth masks.  The model's
     parameters and running statistics change in place; each parameter's
-    `.grad` holds its clipped gradient afterwards."""
+    `.grad` holds its clipped gradient afterwards.  With `mesh` (a
+    `parallel.Mesh`), gradients, loss and running statistics are the means
+    over its ranks (the module docstring)."""
     loss_cfg = cfg.loss
 
     def train_step(state: TrainState, images: torch.Tensor, masks: torch.Tensor,
@@ -158,11 +166,17 @@ def make_train_step(cfg: TrainConfig):
         logits, aux = model(images, generator=generator)
         loss = combined_loss_with_aux(logits, aux, masks, loss_cfg, valid)
         loss.backward()
+        loss = loss.detach()
         params = dict(model.named_parameters())
+        if mesh is not None:
+            mesh.all_mean_([p.grad for p in params.values() if p.grad is not None]
+                           + [loss]
+                           + [b for n, b in model.named_buffers()
+                              if n.endswith(("running_mean", "running_var"))])
         opt_state = state.tx.update(params, {n: p.grad for n, p in params.items()},
                                     state.opt_state)
         return (dataclasses.replace(state, step=state.step + 1, opt_state=opt_state),
-                {"loss": loss.detach()})
+                {"loss": loss})
 
     return train_step
 

@@ -13,7 +13,7 @@
   Importing the port loads no Pillow either: the dataset imports it when
   it reads its first image; nor matplotlib, which the first `Visualizer`
   imports.
-- With no card, the entry points refuse to run instead of using the CPU
+- With no card, the entry points and the CLI refuse to run instead of using the CPU
   (`optimizer_state_from_jax` too, whose default was the CPU; and
   `evaluate_model`, `predict_model`, `train_and_evaluate` and
   `visualize_model` when it serves predictions), writing nothing; a kernel
@@ -67,7 +67,10 @@ for name in ("enhanced_unet_tpu_torch.ops.kernels.mbconv",
              "enhanced_unet_tpu_torch.convert.torch_import",
              "enhanced_unet_tpu_torch.models.unet", "enhanced_unet_tpu_torch.models.segnet",
              "enhanced_unet_tpu_torch.models.fcn", "enhanced_unet_tpu_torch.models.pspnet",
-             "enhanced_unet_tpu_torch.models.linknet"):
+             "enhanced_unet_tpu_torch.models.linknet", "enhanced_unet_tpu_torch.cli",
+             "enhanced_unet_tpu_torch.parallel", "enhanced_unet_tpu_torch.parallel.mesh",
+             "enhanced_unet_tpu_torch.parallel.data_parallel",
+             "enhanced_unet_tpu_torch.parallel.tiled"):
     assert name in walked and name in loaded, name
 print("BOUNDARY OK", len(walked))
 """
@@ -165,6 +168,17 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
         train_model("enhanced_unet", data_dir=str(tmp_path),
                     checkpoint_dir=str(tmp_path / "ck"))
     assert not os.path.exists(tmp_path / "ck")
+
+
+@pytest.mark.parametrize("mode", ["eval", "train", "predict", "visualize"])
+def test_cli_raises_without_a_card(monkeypatch, tmp_path, mode):
+    from enhanced_unet_tpu_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["--mode", mode, "--models", "unet_basic", "--data-dir", str(tmp_path)])
+    assert os.listdir(tmp_path) == []
 
 
 @pytest.mark.parametrize("entry", ["evaluate_model", "predict_model", "visualize_model",

@@ -7,8 +7,9 @@
   monkeypatching `train.api.get_model`; a synthetic 96^2 dataset) writes
   the gate's checkpoints with JAX's history keys and finite gradient
   magnitudes, resumes where it stopped and skips training when asked,
-  as `tests/test_e2e.py` holds the JAX package's; training over more than
-  one device, not served yet, raises (`pretrained_dir` is held in
+  as `tests/test_e2e.py` holds the JAX package's; inside a process group
+  of another size than `num_devices` it raises (the data-parallel runs are
+  held in `tests/test_torch_port_parallel.py`, `pretrained_dir` in
   `tests/test_torch_port_api_train.py`).
 - `quick_val_miou` equals the JAX package's within 1e-4 on the same
   weights (a JAX tree carried into the port by `convert/jax_params.py`)
@@ -38,6 +39,7 @@ from enhanced_unet_tpu.train import checkpoint as jcheckpoint
 from enhanced_unet_tpu.train import trainer as jtrainer
 from enhanced_unet_tpu_torch import models
 from enhanced_unet_tpu_torch.config import get_preset
+from enhanced_unet_tpu_torch.parallel import make_mesh
 from enhanced_unet_tpu_torch.convert import resume_from_jax
 from enhanced_unet_tpu_torch.train import api
 from enhanced_unet_tpu_torch.train.checkpoint import (
@@ -192,10 +194,15 @@ def test_train_model_skips_training(data_dir, tmp_path, tiny_models):
     assert os.path.getmtime(os.path.join(p2, "meta.json")) == mtime
 
 
-@pytest.mark.parametrize("kw,item", [({"num_devices": 2}, "item 5")])
-def test_train_model_refuses_what_it_does_not_serve(data_dir, tmp_path, kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        _run(data_dir, str(tmp_path), epochs=1, every=1, **kw)
+@pytest.mark.parametrize("kw,match", [({"num_devices": 2}, "requested 2 devices")])
+def test_train_model_refuses_what_it_does_not_serve(data_dir, tmp_path, kw, match):
+    # one process per device: a group of one process cannot train on two
+    make_mesh(1, device="cpu", init_dir=str(tmp_path))
+    try:
+        with pytest.raises(ValueError, match=match):
+            _run(data_dir, str(tmp_path), epochs=1, every=1, **kw)
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 # ---- quick_val_miou against JAX ---------------------------------------------
