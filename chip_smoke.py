@@ -208,6 +208,34 @@ Phases (any failure exits non-zero):
     steps: every parameter and running statistic bitwise equal across the
     ranks, each reported loss the mean of the ranks' local losses; their
     times, labelled as two processes on one card;
+9c. spatial partitioning (`parallel/spatial.py`), inside phase 7's temporary
+    directory: the flagship (full width, bf16, phase 4's weights) and
+    BasicUNet on one seeded 2048^2 micrograph, each model's own forward in
+    one process first (its wall ms and peak memory); (a) at world size 1
+    over NCCL, `make_spatial_apply` of the flagship and
+    `make_spatial_basic_unet`, each the first call, then warm; (b) two
+    spawned ranks sharing the card over gloo, 1,024 rows a rank: the
+    flagship at 2048^2 (neighbour halos only), the flagship at 512^2 (256
+    rows a rank: ASPP's stride-16 map has 16 rows a band, so its dilated
+    convolutions take the gathered path) and BasicUNet at 2048^2, each the
+    first call, then warm.  Every run, every count set to 0 before each
+    call: masks (the class of each pixel) of the image's shape in {0,1,2},
+    finite logits within 5e-2 of max |logit| of the one-process forward
+    with each pixel's class the same on 0.9999 of pixels, K2 launched (and
+    for the flagship K1's windowed `nhwc` pass 1 and its pass 2, no
+    unwindowed pass 1, every launch one of the recorded K2 and K1 calls),
+    no other kernel and no plain version; wall ms and each rank's peak
+    memory beside the one process's.  (c) K2 at each shape the flagship's
+    call at world size 1 gave it (its haloed bands), checked and timed as
+    in 4b (10 calls a timing) and summed over the call.  (d) K1 at each
+    band the flagship's calls gave it (world size 1: [1,48|24,1026,1024];
+    two ranks: [1,48|24,514,1024] and, at 512^2, [1,48|24,130,256]), cut
+    from a seeded whole map as the path cuts them: the `nhwc` windowed pass
+    1 and pass 2 with the block's own folded weights, and the fp32
+    row-streaming windowed pass 1 with a seeded fp32 block, against their
+    plain version (bf16 within 2e-2 of max |value|, fp32 within 1e-4), the
+    bands' sums against the whole map's, timed beside the plain version,
+    pass 1 beside the launch without its window, and the bound;
 10. a `{"kernels": [...]}` line, each entry's launches counted in the run
     whose time and shape it reports (the serving kernels' also per tiled
     request, `tiled_launches`; K2's also per zoo request, `zoo_launches`),
@@ -841,6 +869,29 @@ def effnet_files(model, out_dir: str, seed: int) -> dict:
     return out
 
 
+def count_plain():
+    """K2's and K1's plain versions patched to count their calls: (counts,
+    restore)."""
+    from enhanced_unet_tpu_torch.ops.kernels import conv_fused, mbconv
+
+    plain = {"conv3x3_bn_act": 0, "mbconv": 0}
+    real = (conv_fused.fused_conv3x3_bn_relu_plain, mbconv.mbconv_infer_nchw_plain)
+
+    def counted(name, fn):
+        def run(*a, **kw):
+            plain[name] += 1
+            return fn(*a, **kw)
+        return run
+
+    conv_fused.fused_conv3x3_bn_relu_plain = counted("conv3x3_bn_act", real[0])
+    mbconv.mbconv_infer_nchw_plain = counted("mbconv", real[1])
+
+    def restore():
+        conv_fused.fused_conv3x3_bn_relu_plain, mbconv.mbconv_infer_nchw_plain = real
+
+    return plain, restore
+
+
 def phase7b_entry_points(card: str, counters, dev, tmp: str, data_dir: str, best: str) -> None:
     """7b. The user-facing entry points at full width on phase 7's
     micrographs and `best_model` (see the module docstring)."""
@@ -867,15 +918,6 @@ def phase7b_entry_points(card: str, counters, dev, tmp: str, data_dir: str, best
         print(f"[{card}] matplotlib is not installed on this machine: evaluate_model runs "
               "with generate_visualizations=False, visualize_model is not run")
 
-    plain = {"conv3x3_bn_act": 0, "mbconv": 0}
-    real_plain = (conv_fused.fused_conv3x3_bn_relu_plain, mbconv.mbconv_infer_nchw_plain)
-
-    def counted(name, fn):
-        def run(*a, **kw):
-            plain[name] += 1
-            return fn(*a, **kw)
-        return run
-
     def k1_k2(what):
         launches = {**conv_fused.LAUNCHES, **mbconv.LAUNCHES}
         check(launches["mbconv_nhwc_pass1"] > 0 and launches["mbconv_nhwc_pass2"] > 0,
@@ -889,8 +931,7 @@ def phase7b_entry_points(card: str, counters, dev, tmp: str, data_dir: str, best
     cfg = get_preset("enhanced_unet")
     results_dir = os.path.join(tmp, "results")
     save_dir = os.path.join(results_dir, "enhanced_unet")
-    conv_fused.fused_conv3x3_bn_relu_plain = counted("conv3x3_bn_act", real_plain[0])
-    mbconv.mbconv_infer_nchw_plain = counted("mbconv", real_plain[1])
+    plain, restore = count_plain()
     try:
         # evaluate_model on the val split: without figures, with them, without
         logs, seconds, launches, peaks = [], {}, {}, []
@@ -1070,7 +1111,7 @@ def phase7b_entry_points(card: str, counters, dev, tmp: str, data_dir: str, best
                                               "enhanced_unet_training_history.csv")),
                   "visualize_model wrote the history CSV")
     finally:
-        conv_fused.fused_conv3x3_bn_relu_plain, mbconv.mbconv_infer_nchw_plain = real_plain
+        restore()
 
     # ImageNet encoders into the full-width flagship on the card
     weights = os.path.join(tmp, "weights")
@@ -1596,15 +1637,6 @@ def phase9b_cli_and_data_axis(card: str, counters, dev, tmp: str, data_dir: str)
     os.makedirs(test_dir)
     for name in CellDataset(data_dir, "test").files:
         os.link(os.path.join(data_dir, name), os.path.join(test_dir, name))
-    plain = {"conv3x3_bn_act": 0, "mbconv": 0}
-    real_plain = (conv_fused.fused_conv3x3_bn_relu_plain, mbconv.mbconv_infer_nchw_plain)
-
-    def counted(name, fn):
-        def run(*a, **kw):
-            plain[name] += 1
-            return fn(*a, **kw)
-        return run
-
     def call(argv, what):
         reset(counters)
         plain.update(conv3x3_bn_act=0, mbconv=0)
@@ -1652,8 +1684,7 @@ def phase9b_cli_and_data_axis(card: str, counters, dev, tmp: str, data_dir: str)
     base = ["--data-dir", data_dir, "--max-size", str(ENTRY_MAX_SIZE), "--models", *models]
     cwd = os.getcwd()
     os.chdir(work)       # the CLI's default checkpoint and results folders
-    conv_fused.fused_conv3x3_bn_relu_plain = counted("conv3x3_bn_act", real_plain[0])
-    mbconv.mbconv_infer_nchw_plain = counted("mbconv", real_plain[1])
+    plain, restore = count_plain()
     try:
         launches, _ = call(["--mode", "train_eval", "--epochs", "1", *base,
                             "--results-dir", "results"], "train_eval")
@@ -1706,7 +1737,7 @@ def phase9b_cli_and_data_axis(card: str, counters, dev, tmp: str, data_dir: str)
         else:
             print(f"[{card}] cli visualize: skipped (no matplotlib)")
     finally:
-        conv_fused.fused_conv3x3_bn_relu_plain, mbconv.mbconv_infer_nchw_plain = real_plain
+        restore()
         os.chdir(cwd)
 
     # ---- (b) the data-parallel step at world size 1 (NCCL) against the plain step
@@ -1790,8 +1821,7 @@ def phase9b_cli_and_data_axis(card: str, counters, dev, tmp: str, data_dir: str)
             return serve(tiles)[0]
 
         with torch.no_grad():
-            conv_fused.fused_conv3x3_bn_relu_plain = counted("conv3x3_bn_act", real_plain[0])
-            mbconv.mbconv_infer_nchw_plain = counted("mbconv", real_plain[1])
+            plain, restore = count_plain()
             try:
                 sharded_ms, single_ms = [], []
                 for _ in range(2):                           # the first call, then warm
@@ -1810,8 +1840,7 @@ def phase9b_cli_and_data_axis(card: str, counters, dev, tmp: str, data_dir: str)
                     sync()
                     single_ms.append(1e3 * (time.perf_counter() - t0))
             finally:
-                conv_fused.fused_conv3x3_bn_relu_plain = real_plain[0]
-                mbconv.mbconv_infer_nchw_plain = real_plain[1]
+                restore()
         single = single.cpu()
         err = (sharded - single).abs().max().item()
         agree = (sharded.argmax(-1) == single.argmax(-1)).double().mean().item()
@@ -1862,6 +1891,374 @@ def phase9b_cli_and_data_axis(card: str, counters, dev, tmp: str, data_dir: str)
                         "replicate_ms": [r["replicate_ms"] for r in ranks]}
     print(f"[{card}] phase 9b (the CLI and the data axis): "
           f"{time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+SPATIAL_SIZES = (2048, 512)     # phase 9c: the micrograph; the small one where ASPP gathers
+SPATIAL_TOL, SPATIAL_AGREE = 5e-2, 0.9999   # of max |logit|; pixels of the same class
+SPATIAL_K2_ITERS = 10           # calls per timing of K2's rows at the spatial path's shapes
+
+
+def spatial_runs(mesh, images: dict, repeats: dict):
+    """The spatial entry points on this rank's bands of `images` (key ->
+    [H, W, 3] on the host): the flagship (`serving_model`) through
+    `make_spatial_apply` (keys starting "flagship"), BasicUNet (seed 0)
+    through `make_spatial_basic_unet` ("basic_unet"), `repeats[key]` calls
+    each (the first, then warm).  Returns per key the whole logits
+    (gathered, on the host), each call's wall ms, the last call's launches
+    and plain-version calls, this process's peak memory over the calls,
+    and the last call's K2 calls through `models.blocks` (`k2_calls`:
+    (input shape + Cout, relu) -> calls; the flagship's, BasicUNet's
+    convolutions go through `parallel.spatial`) and K1 calls (`k1_calls`:
+    (band shape, Cout, residual, rows, hw) -> calls); and the folded
+    weights of the first K1 block of each (Cin, Cout, residual)
+    (`k1_weights`, on the card)."""
+    import torch
+
+    from enhanced_unet_tpu_torch.models import blocks, encoders, get_model
+    from enhanced_unet_tpu_torch.ops.kernels import conv_fused, depthwise, mbconv
+    from enhanced_unet_tpu_torch.parallel.spatial import (
+        gather_image_h, make_spatial_apply, make_spatial_basic_unet, shard_image_h)
+
+    counters = (conv_fused.LAUNCHES, mbconv.LAUNCHES, depthwise.LAUNCHES)
+    dev = mesh.device
+    flagship = serving_model(device=dev).eval()
+    unet = get_model("unet_basic", seed=0, device=dev)
+    k2_entry, k1_entry = blocks.fused_conv3x3_bn_relu_packed, encoders.mbconv_infer_nchw
+    k2_calls, k1_calls, k1_weights = {}, {}, {}
+
+    def recording_k2(x, packed, relu=True):
+        key = (tuple(x.shape) + (packed.cout,), relu)
+        k2_calls[key] = k2_calls.get(key, 0) + 1
+        return k2_entry(x, packed, relu)
+
+    def recording_k1(x, p, *, residual, rows=None, reduce=None, hw=None):
+        key = (tuple(x.shape), p.wproj.shape[1], residual, rows, hw)
+        k1_calls[key] = k1_calls.get(key, 0) + 1
+        k1_weights.setdefault((x.shape[1], p.wproj.shape[1], residual), p)
+        return k1_entry(x, p, residual=residual, rows=rows, reduce=reduce, hw=hw)
+
+    out = {}
+    plain, restore = count_plain()
+    blocks.fused_conv3x3_bn_relu_packed, encoders.mbconv_infer_nchw = recording_k2, recording_k1
+    try:
+        for key, image in images.items():
+            basic = key == "basic_unet"
+            fn = ((lambda b: make_spatial_basic_unet(mesh)(unet, b)) if basic else
+                  (lambda b: make_spatial_apply(flagship, mesh)(b[None])[0]))
+            band = shard_image_h(image, mesh)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            ms = []
+            for _ in range(repeats[key]):
+                reset(counters)
+                plain.update(conv3x3_bn_act=0, mbconv=0)
+                k2_calls.clear()
+                k1_calls.clear()
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                y = fn(band)
+                torch.cuda.synchronize(dev)
+                ms.append(1e3 * (time.perf_counter() - t0))
+            out[key] = {"ms": ms, "peak": torch.cuda.max_memory_allocated(dev),
+                        "launches": {k: v for c in counters for k, v in c.items() if v},
+                        "plain": dict(plain), "logits": gather_image_h(y, mesh).cpu(),
+                        "k2_calls": dict(k2_calls), "k1_calls": dict(k1_calls)}
+            del y, band
+    finally:
+        restore()
+        blocks.fused_conv3x3_bn_relu_packed, encoders.mbconv_infer_nchw = k2_entry, k1_entry
+    out["k1_weights"] = k1_weights
+    return out
+
+
+def spatial_two_ranks(mesh, out_dir: str):
+    """9c (b), one of two ranks sharing the card over gloo: `spatial_runs`
+    on the images `out_dir/images.pt`, two calls each; rank 0 writes what it returns
+    (every rank gathers the same logits), every rank its times, launches,
+    calls and peak memory."""
+    import os
+
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    images = torch.load(os.path.join(out_dir, "images.pt"))
+    out = spatial_runs(mesh, images, {k: 2 for k in images})
+    del out["k1_weights"]
+    if mesh.rank:
+        out = {k: {n: v for n, v in r.items() if n != "logits"} for k, r in out.items()}
+    torch.save(out, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
+
+
+def spatial_k1_rows(card: str, dev, k1_keys: dict, k1_weights: dict):
+    """9c (d): K1 at each band the spatial flagship gave it (`k1_keys`:
+    (band shape, Cout, residual, rows, hw) -> (launches, run)).  Each band
+    is cut as the path cuts it from a seeded whole map (one row of the
+    neighbours' on either side, zeros beyond the image); on the `nhwc`
+    kernels with the block's own folded weights (`k1_weights`), pass 1 with
+    the band's window and pass 2 on the haloed band, and on the fp32
+    row-streaming kernel with a seeded fp32 block, pass 1 alone; each
+    against its plain version (bf16 within 2e-2 of max |value|, fp32 within
+    1e-4) and the bands' sums against the whole map's; timed beside the
+    plain version (and pass 1 beside the launch without its window) and the
+    bound.  Returns the rows and the fp32 kernel's launches in this check."""
+    import torch
+    import torch.nn.functional as F
+
+    from enhanced_unet_tpu_torch.benchmarks.microtime import device_ms
+    from enhanced_unet_tpu_torch.models import init_random_weights_
+    from enhanced_unet_tpu_torch.models.encoders import MBConvBlock
+    from enhanced_unet_tpu_torch.ops.kernels import mbconv
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    rows, fp32_launches = [], 0
+    for key, (count, run) in k1_keys.items():
+        (n, c, hb, w), cout, res, (lo, hi), hw = key
+        hl = hi - lo
+        nb = hw // (hl * w)
+        check(lo == 1 and hb == hl + 2 and hw == nb * hl * w,
+              f"K1 band {key}: its own rows [1, H - 1) of a map of {nb} bands")
+        for dtype in (torch.bfloat16, torch.float32):
+            bf16 = dtype == torch.bfloat16
+            name = "mbconv_nhwc_pass1_window" if bf16 else "mbconv_pass1_window"
+            if bf16:
+                p = k1_weights[(c, cout, res)]
+                pass1 = mbconv.mbconv_nhwc_pass1
+                fmt = torch.channels_last
+            else:
+                p = init_random_weights_(MBConvBlock(c, cout, 1, 1, 3, fused=True,
+                                                     dtype=dtype), 1).eval().to(dev).fold()
+                pass1 = mbconv.mbconv_pass1
+                fmt = torch.contiguous_format
+            with torch.no_grad():
+                whole = torch.randn(n, nb * hl, w, c, generator=g, device=dev).to(dtype)
+                whole = whole.permute(0, 3, 1, 2).contiguous(memory_format=fmt)
+                xp = F.pad(whole, (0, 0, 1, 1))
+                bands = [xp[:, :, r * hl:(r + 1) * hl + 2].contiguous(memory_format=fmt)
+                         for r in range(nb)]
+                check(tuple(bands[0].shape) == (n, c, hb, w), f"K1 band {key} as the path cut it")
+                before = mbconv.LAUNCHES[name]
+                got = [pass1(b, p, (lo, hi)) for b in bands]
+                torch.cuda.synchronize()
+                check(mbconv.LAUNCHES[name] - before == nb, f"{name} launched once a band")
+                fp32_launches += 0 if bf16 else nb
+                want = [mbconv.mbconv_pass1_plain(b, p, (lo, hi)) for b in bands]
+                err = max((a - b).abs().max().item() for a, b in zip(got, want))
+                rel = err / max(b.abs().max().item() for b in want)
+                whole_sums = mbconv.mbconv_pass1_plain(whole, p)
+                total = ((sum(got) - whole_sums).abs().max().item()
+                         / whole_sums.abs().max().item())
+                tol = 2e-2 if bf16 else 1e-4
+                kind = "bf16" if bf16 else "fp32"
+                es = whole.element_size()
+                w_bytes = c * (9 * es + 4)
+                b1, by1 = bound(n * hb * w * c * es + w_bytes + n * c * 4,
+                                n * hl * w * 24 * c, kind)
+                shape = f"[{n},{c},{hb},{w}] rows [{lo},{hi}) of {nb} band(s) {kind}"
+                row = dict(name=name, shape=shape, launches=count if bf16 else nb,
+                           launches_from=run if bf16 else "this check", max_abs_err=err,
+                           rel_err=rel, bands_sum_rel_err=total,
+                           ms=device_ms(lambda: pass1(bands[0], p, (lo, hi)), K1_ITERS),
+                           wall_ms=device_ms(lambda: pass1(bands[0], p, (lo, hi)), K1_ITERS,
+                                             held=False),
+                           unwindowed_ms=device_ms(lambda: pass1(bands[0], p), K1_ITERS),
+                           plain_ms=device_ms(lambda: mbconv.mbconv_pass1_plain(
+                               bands[0], p, (lo, hi)), K1_ITERS),
+                           bound_ms=b1, bound_by=by1, library_ms=None)
+                print(f"K1 {name} {shape}: rel err {rel:.3e} (tol {tol:g}), the bands' sums "
+                      f"against the whole map's {total:.3e}; kernel {row['ms']:.4f} ms (unheld "
+                      f"{row['wall_ms']:.4f}, without the window {row['unwindowed_ms']:.4f}), "
+                      f"plain {row['plain_ms']:.4f}, bound {b1:.4f} ({by1}); launches "
+                      f"{row['launches']} ({row['launches_from']})")
+                check(rel <= tol, f"{name} {shape} within {tol} of its plain version")
+                check(total <= tol, f"{name} {shape}: the bands' sums make the whole map's")
+                rows.append(row)
+                if bf16:               # pass 2 on the haloed band, the gate's sums all-reduced
+                    wpp = mbconv.se_gated_projection(sum(want), p, hw, dtype)
+                    x0 = bands[0]
+                    y = mbconv.mbconv_nhwc_pass2(x0, p, wpp, res)
+                    torch.cuda.synchronize()
+                    y_want = mbconv.mbconv_pass2_plain(x0, p, wpp, res)
+                    err2 = (y.float() - y_want.float()).abs().max().item()
+                    rel2 = err2 / y_want.float().abs().max().item()
+                    ops = n * hb * w * (23 * c + 2 * c * cout + 2 * cout)
+                    b2, by2 = bound(n * hb * w * (c + cout) * es + w_bytes + n * c * cout * es
+                                    + cout * 4, ops, kind)
+                    shape2 = f"[{n},{c},{hb},{w}] ->{cout}{' residual' if res else ''} {kind}"
+                    row2 = dict(name="mbconv_nhwc_pass2", shape=shape2, launches=count,
+                                launches_from=run, max_abs_err=err2, rel_err=rel2,
+                                ms=device_ms(lambda: mbconv.mbconv_nhwc_pass2(x0, p, wpp, res),
+                                             K1_ITERS),
+                                plain_ms=device_ms(lambda: mbconv.mbconv_pass2_plain(
+                                    x0, p, wpp, res), K1_ITERS),
+                                bound_ms=b2, bound_by=by2, library_ms=None)
+                    print(f"K1 mbconv_nhwc_pass2 {shape2} (spatial band): rel err {rel2:.3e} "
+                          f"(tol 2e-2); kernel {row2['ms']:.4f} ms, plain "
+                          f"{row2['plain_ms']:.4f}, bound {b2:.4f} ({by2}); launches {count} "
+                          f"({run})")
+                    check(rel2 <= 2e-2, f"mbconv_nhwc_pass2 {shape2} within 2e-2 of its plain "
+                          "version")
+                    rows.append(row2)
+                    del y, y_want, wpp
+                del whole, xp, bands, got, want, whole_sums
+    return rows, fp32_launches
+
+
+def phase9c_spatial(card: str, dev, tmp: str, k2_row) -> dict:
+    """9c. Spatial partitioning on the card (see the module docstring).
+    Returns the readings, K2's and K1's rows at the spatial path's shapes
+    and the windowed pass-1 kernels' entries and launches."""
+    import os
+
+    import torch
+
+    from enhanced_unet_tpu_torch.models import get_model
+    from enhanced_unet_tpu_torch.parallel import make_mesh, spawn
+
+    t_phase = time.perf_counter()
+    big, small = SPATIAL_SIZES
+    images = {"flagship": torch.from_numpy(synthetic_images(1, big, 17)[0]),
+              "flagship_small": torch.from_numpy(synthetic_images(1, small, 18)[0])}
+    images["basic_unet"] = images["flagship"]
+
+    # ---- one process: each model's own forward (the reference), the first
+    # call and a warm one, its peak
+    ref = {}
+    flagship = serving_model(device=dev).eval()
+    unet = get_model("unet_basic", seed=0, device=dev)
+    for key, image in images.items():
+        model = unet if key == "basic_unet" else flagship
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        with torch.no_grad():
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                y = model(image[None].to(dev))[0][0]
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+        ref[key] = {"ms": ms, "logits": y.float().cpu(),
+                    "peak": torch.cuda.max_memory_allocated()}
+        del y
+    del flagship, unet
+
+    def held(key, r, what):
+        """The checks of one spatial run against the one-process forward."""
+        logits, want = r["logits"], ref[key]["logits"]
+        masks = logits.argmax(-1)
+        err = (logits - want).abs().max().item() / want.abs().max().item()
+        agree = (masks == want.argmax(-1)).double().mean().item()
+        launches = r["launches"]
+        k2 = launches.get("conv3x3_bn_act_wgmma", 0) + launches.get("conv3x3_bn_act_smallc", 0)
+        print(f"[{card}] {what}: wall ms {[round(t, 1) for t in r['ms']]} (one process "
+              f"{[round(t, 1) for t in ref[key]['ms']]}); peak {r['peak']} bytes (one process "
+              f"{ref[key]['peak']}); launches "
+              f"{json.dumps(launches)}; plain-version calls {r['plain']}; max |logit diff| / "
+              f"max |logit| {err:.3e} (tol {SPATIAL_TOL:g}); pixels of the same class "
+              f"{agree:.6f} (tol {SPATIAL_AGREE})")
+        check(tuple(masks.shape) == tuple(want.shape[:2])
+              and set(masks.unique().tolist()) <= {0, 1, 2}, f"{what}: masks in {{0,1,2}}")
+        check(bool(torch.isfinite(logits).all()), f"{what}: finite logits")
+        check(err <= SPATIAL_TOL, f"{what}: logits within {SPATIAL_TOL} of the one process's")
+        check(agree >= SPATIAL_AGREE, f"{what}: classes agree on {SPATIAL_AGREE} of pixels")
+        check(k2 > 0, f"{what}: K2 launched")
+        check(r["plain"] == {"conv3x3_bn_act": 0, "mbconv": 0},
+              f"{what}: no plain version of K1 or K2 ({r['plain']})")
+        if key.startswith("flagship"):
+            window = launches.get("mbconv_nhwc_pass1_window", 0)
+            check(window > 0 and launches.get("mbconv_nhwc_pass2", 0) == window
+                  and launches.get("mbconv_nhwc_pass1", 0) == 0,
+                  f"{what}: K1's windowed nhwc pass 1 and its pass 2 launched, no "
+                  "unwindowed pass 1")
+            check(sum(r["k2_calls"].values()) == k2 and sum(r["k1_calls"].values()) == window,
+                  f"{what}: the recorded K2 and K1 calls are the run's launches")
+        other = {k: v for k, v in launches.items() if k not in (
+            "conv3x3_bn_act_wgmma", "conv3x3_bn_act_smallc", "mbconv_nhwc_pass1_window",
+            "mbconv_nhwc_pass2")}
+        check(not other, f"{what}: no other kernel ({other})")
+        return {"ms": r["ms"], "peak": r["peak"], "one_process_peak": ref[key]["peak"],
+                "one_process_ms": ref[key]["ms"], "err": err, "agree": agree,
+                "launches": launches}
+
+    out = {"card": card}
+    # ---- (a) world size 1 over NCCL
+    os.makedirs(os.path.join(tmp, "spatial1"))
+    mesh = make_mesh(1, "space", init_dir=os.path.join(tmp, "spatial1"))
+    try:
+        runs = spatial_runs(mesh, {k: images[k] for k in ("flagship", "basic_unet")},
+                            {"flagship": 2, "basic_unet": 2})
+    finally:
+        torch.distributed.destroy_process_group()
+    k1_weights = runs.pop("k1_weights")
+    out["ws1"] = {key: held(key, r, f"spatial {key} {big}^2, world size 1 over NCCL")
+                  for key, r in runs.items()}
+    ws1 = runs["flagship"]
+    k2_calls = ws1["k2_calls"]
+    k1_keys = {k: (c, f"the {big}^2 flagship at world size 1") for k, c in ws1["k1_calls"].items()}
+    del runs
+
+    # ---- (b) two ranks sharing the card over gloo
+    ranks_dir = os.path.join(tmp, "spatial2")
+    os.makedirs(ranks_dir)
+    torch.save(images, os.path.join(ranks_dir, "images.pt"))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    spawn(spatial_two_ranks, 2, (ranks_dir,), device="cuda:0", backend="gloo",
+          init_dir=ranks_dir, timeout=600)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(ranks_dir, f"rank{r}.pt")) for r in range(2)]
+    out["two_ranks"] = {}
+    for key in images:
+        size = images[key].shape[0]
+        r = dict(ranks[0][key])
+        r["ms"] = [ranks[q][key]["ms"] for q in range(2)]
+        res = held(key, {**r, "ms": r["ms"][0]},
+                   f"spatial {key} {size}^2, two ranks on one card over gloo, rank 0 "
+                   f"(rank 1: wall ms {[round(t, 1) for t in r['ms'][1]]}, peak "
+                   f"{ranks[1][key]['peak']} bytes, launches "
+                   f"{json.dumps(ranks[1][key]['launches'])})")
+        res["ms"], res["peak"] = r["ms"], [ranks[q][key]["peak"] for q in range(2)]
+        out["two_ranks"][key] = res
+        if key.startswith("flagship"):
+            for k, c in r["k1_calls"].items():
+                k1_keys.setdefault(k, (c, f"the {size}^2 flagship on two ranks, rank 0"))
+    print(f"[{card}] two ranks: spawn to join {spawn_s:.1f} s")
+    out["two_ranks_spawn_s"] = spawn_s
+
+    # ---- (c) K2 at each shape the spatial flagship gave it at world size 1
+    t0 = time.perf_counter()
+    k2_rows = []
+    for (shape, relu), count in sorted(k2_calls.items()):
+        r = k2_row(shape[:5], relu, iters=SPATIAL_K2_ITERS)
+        r["launches"] = count
+        print_k2(r, "spatial ")
+        k2_rows.append(r)
+    check(all(r["variant"] in ("wgmma", "smallc") for r in k2_rows),
+          "every spatial K2 shape reaches the wgmma or the small-Cin kernel")
+    per_call = {k: sum(r["launches"] * r[k] for r in k2_rows)
+                for k in ("ms", "wall_ms", "bound_ms", "library_ms", "library_conv_ms",
+                          "plain_ms")}
+    print(f"K2 per spatial flagship call at world size 1 ({len(k2_rows)} shapes, "
+          f"{sum(k2_calls.values())} launches; sum of launches x time): kernel "
+          f"{per_call['ms']:.4f} ms (unheld {per_call['wall_ms']:.4f}), bound "
+          f"{per_call['bound_ms']:.4f}, cuDNN + epilogue {per_call['library_ms']:.4f}, cuDNN "
+          f"conv alone {per_call['library_conv_ms']:.4f}, plain {per_call['plain_ms']:.4f}; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- (d) K1 at each band the spatial flagship gave it
+    k1_rows, fp32_launches = spatial_k1_rows(card, dev, k1_keys, k1_weights)
+    check(fp32_launches > 0, "the fp32 windowed pass 1 launched")
+    first = {}
+    for row in k1_rows:                  # the widest band at world size 1 leads
+        first.setdefault(row["name"], row)
+    out["entries"] = {k: first[k] for k in ("mbconv_nhwc_pass1_window", "mbconv_pass1_window")}
+    out["launches"] = {"mbconv_nhwc_pass1_window": ws1["launches"]["mbconv_nhwc_pass1_window"],
+                       "mbconv_pass1_window": fp32_launches}
+    out["spatial_launches"] = ws1["launches"]
+    out["k2_rows"], out["k2_per_call"], out["k1_rows"] = k2_rows, per_call, k1_rows
+    print(f"[{card}] phase 9c (spatial partitioning): {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -2184,8 +2581,10 @@ def main(argv=None) -> int:
                       "mbconv_pass2_b2": bench_mbconv["mbconv_pass2"]}
     print(f"benches: {time.perf_counter() - t0:.2f} s, launches "
           f"{json.dumps(bench_launches)}, mbconv {json.dumps(mbconv.LAUNCHES)}")
+    # (the windowed pass 1, spatial partitioning's, is phase 9c's)
     for name, count in {**bench_launches, **mbconv.LAUNCHES}.items():
-        check(count > 0, f"kernel {name} was not launched by the benches")
+        check(count > 0 or name.endswith("_window"),
+              f"kernel {name} was not launched by the benches")
     rows = {r["bench"]: r for r in rows if "bench" in r}
 
     n, c, h, w = mbconv_instr.N, mbconv_instr.C, mbconv_instr.H, mbconv_instr.W
@@ -2764,13 +3163,15 @@ def main(argv=None) -> int:
     check(grad32 <= grad_tol, "tiny fp32 gradients within 1e-3 (or the fp32 noise) of the cpu")
     check(grad64 <= 1e-4, "tiny fp64 gradients within 1e-4 of the cpu")
 
-    # ---- 7. the training entry point; 9. the zoo and 9b. the CLI and the
-    # data axis, in its folder
-    zoo_launches, _ = phase7_training_entry(
+    # ---- 7. the training entry point; 9. the zoo, 9b. the CLI and the
+    # data axis and 9c. spatial partitioning, in its folder
+    zoo_launches, _, spatial = phase7_training_entry(
         card, counters, dev,
         after=lambda tmp, data_dir: (
             phase9_zoo(card, counters, dev, tmp, data_dir, k2_row, set(k2_calls)),
-            phase9b_cli_and_data_axis(card, counters, dev, tmp, data_dir)))
+            phase9b_cli_and_data_axis(card, counters, dev, tmp, data_dir),
+            phase9c_spatial(card, dev, tmp, k2_row)))
+    results.update(spatial["entries"])
 
     # ---- 10. report ------------------------------------------------------
     meta = {
@@ -2790,6 +3191,10 @@ def main(argv=None) -> int:
                                      "enhanced_unet_tpu/ops/pallas/mbconv.py:233"),
         "mbconv_pass1": ("enhanced_unet_tpu_torch/csrc/mbconv.cu",
                          "enhanced_unet_tpu/ops/pallas/mbconv.py:208"),
+        "mbconv_nhwc_pass1_window": ("enhanced_unet_tpu_torch/csrc/mbconv_nhwc.cu",
+                                     "enhanced_unet_tpu/ops/pallas/mbconv.py:208"),
+        "mbconv_pass1_window": ("enhanced_unet_tpu_torch/csrc/mbconv.cu",
+                                "enhanced_unet_tpu/ops/pallas/mbconv.py:208"),
         "mbconv_pass2": ("enhanced_unet_tpu_torch/csrc/mbconv.cu",
                          "enhanced_unet_tpu/ops/pallas/mbconv.py:233"),
         "mbconv_proto": ("enhanced_unet_tpu_torch/csrc/mbconv_nhwc.cu, "
@@ -2809,13 +3214,18 @@ def main(argv=None) -> int:
     # launches, each from the run whose time and shape the entry reports:
     # the serving run's for its kernels, the benches' (3b) for theirs (B1:
     # stage 0; B2's passes on the `nchw` kernels), the general path's (phase
-    # 3) for K2's mma variant, and phase 3's own cases for K1's
+    # 3) for K2's mma variant, phase 3's own cases for K1's
     # `nhwc_expand` kernels (the bf16 expand block) and `nchw` ones (the
-    # fp32 block)
+    # fp32 block), phase 9c's spatial flagship at world size 1 for K1's
+    # windowed `nhwc` pass 1 and 9c's own check for the fp32 windowed one
     path_launches = {**launches, **bench_launches, "conv3x3_bn_act_mma": general_launches,
+                     **spatial["launches"],
                      **{k: case_launches["nhwc_expand"][k]
                         for k in ("mbconv_nhwc_expand_pass1", "mbconv_nhwc_expand_pass2")},
                      **{k: case_launches["nchw"][k] for k in ("mbconv_pass1", "mbconv_pass2")}}
+    # what the spatial flagship's call at world size 1 (9c) launched of the
+    # serving kernels
+    spatial_kernels = ("conv3x3_bn_act_wgmma", "conv3x3_bn_act_smallc", "mbconv_nhwc_pass2")
     kernels = []
     for name, (source, replaces) in meta.items():
         r = results[name]
@@ -2829,6 +3239,8 @@ def main(argv=None) -> int:
                            else {}),
                         **({"zoo_launches": {m: k[name] for m, k in zoo_launches.items()}}
                            if name in conv_fused.LAUNCHES else {}),
+                        **({"spatial_launches": spatial["spatial_launches"].get(name, 0)}
+                           if name in spatial_kernels else {}),
                         **{k: r[k] for k in ("library_conv_ms", "library_block_ms", "nchw_ms",
                                              "yardstick_ms", "copy_ratio", "bf16_weights_ms")
                            if k in r},

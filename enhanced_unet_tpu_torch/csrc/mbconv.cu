@@ -879,7 +879,8 @@ mbconv_nchw_kernel(const typename Geo<BF16>::T* __restrict__ x,
 // csrc/row_stream.cuh's loop (csrc/depthwise.cu's), with a sum in place of
 // the store.  A warp takes a work item (plane, strip of SH output rows, run
 // of 32 lanes x 16 bytes of columns) and sums the fp32 SiLU output of its
-// columns inside the image; then the warp's sum goes to
+// columns inside the image, in the rows of the counted window (a band's own
+// rows of a haloed band under spatial partitioning); then the warp's sum goes to
 // partial[n][strip, run][c] by shuffles in a fixed order.  Element-wise
 // loads where W is not a multiple of 16 bytes or x starts misaligned.
 constexpr int SH = 16;               // output rows a strip
@@ -895,7 +896,8 @@ __global__ void __launch_bounds__(NT)
 mbconv_pass1_stream_kernel(const typename Geo<BF16>::T* __restrict__ x,
                            const typename Geo<BF16>::T* __restrict__ wdw,
                            const float* __restrict__ bdw, float* __restrict__ partial,
-                           long long items, int C, int H, int W, int runs, int strips) {
+                           long long items, int C, int H, int W, int runs, int strips,
+                           int row_lo, int row_hi) {
   using T = typename Geo<BF16>::T;
   using Row = rowstream::Row<T>;
   constexpr int VW = Geo<BF16>::VW;
@@ -918,7 +920,8 @@ mbconv_pass1_stream_kernel(const typename Geo<BF16>::T* __restrict__ x,
     float sum = 0.f;
     rowstream::stream_strip<T, SPF, VEC, true>(
         x + (size_t)plane * H * W, min(SH, H - h0), h0 - 1, H, W, run0, lane, stage,
-        [&](int, const Row& ra, const Row& rb, const Row& rc) {
+        [&](int r, const Row& ra, const Row& rb, const Row& rc) {
+          if (h0 + r < row_lo || h0 + r >= row_hi) return;   // a row not counted
           float acc[VW];
 #pragma unroll
           for (int j = 0; j < VW; ++j) acc[j] = bias;
@@ -943,7 +946,7 @@ int stream_tiles(int H, int W) {
 
 template <bool BF16>
 int launch_pass1_stream(const void* x, const void* wdw, const void* bdw, void* partial, int N,
-                        int C, int H, int W, cudaStream_t s) {
+                        int C, int H, int W, int row_lo, int row_hi, cudaStream_t s) {
   using T = typename Geo<BF16>::T;
   const bool vec = W % Geo<BF16>::VW == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
   const int runs = (W + RUN<BF16> - 1) / RUN<BF16>, strips = (H + SH - 1) / SH;
@@ -954,7 +957,7 @@ int launch_pass1_stream(const void* x, const void* wdw, const void* bdw, void* p
                     : mbconv_pass1_stream_kernel<BF16, false>;
   kernel<<<blocks, NT, 0, s>>>(static_cast<const T*>(x), static_cast<const T*>(wdw),
                                static_cast<const float*>(bdw), static_cast<float*>(partial),
-                               items, C, H, W, runs, strips);
+                               items, C, H, W, runs, strips, row_lo, row_hi);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1062,16 +1065,23 @@ extern "C" int mbconv_nchw_tiles(int H, int W, int expand, int is_bf16) {
 // x [N,Cin,H,W]; wexp [mid,Cin] or NULL (no expand: mid == Cin); bexp [mid]
 // fp32; wdw [mid,3,3]; bdw [mid] fp32; partial [N, tiles, mid] fp32 with
 // tiles = mbconv_nchw_tiles(H, W, wexp != NULL, is_bf16).  T is bf16 when
-// is_bf16, else fp32.
+// is_bf16, else fp32.  Only output rows [row_lo, row_hi) are summed
+// (0 <= row_lo <= row_hi <= H): any window without an expand (the
+// row-streaming kernel), only 0, H with one (the tiled kernel).
 extern "C" int mbconv_pass1(const void* x, const void* wexp, const void* bexp,
                             const void* wdw, const void* bdw, void* partial, int N, int Cin,
-                            int mid, int H, int W, int is_bf16, void* stream) {
+                            int mid, int H, int W, int row_lo, int row_hi, int is_bf16,
+                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (row_lo < 0 || row_lo > row_hi || row_hi > H || (wexp && (row_lo != 0 || row_hi != H)))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (!wexp) {
     if (N < 1 || Cin < 1 || H < 1 || W < 1 || mid != Cin)
       return static_cast<int>(cudaErrorInvalidValue);
-    return is_bf16 ? launch_pass1_stream<true>(x, wdw, bdw, partial, N, Cin, H, W, s)
-                   : launch_pass1_stream<false>(x, wdw, bdw, partial, N, Cin, H, W, s);
+    return is_bf16
+               ? launch_pass1_stream<true>(x, wdw, bdw, partial, N, Cin, H, W, row_lo, row_hi, s)
+               : launch_pass1_stream<false>(x, wdw, bdw, partial, N, Cin, H, W, row_lo, row_hi,
+                                            s);
   }
   if (is_bf16)
     return dispatch<true, 1>(x, wexp, bexp, wdw, bdw, nullptr, nullptr, nullptr, partial, N,

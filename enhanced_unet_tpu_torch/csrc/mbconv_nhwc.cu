@@ -165,7 +165,7 @@ template <int C, int TH>
 __global__ void __launch_bounds__(Geo<C>::NT, Geo<C>::BLOCKS)
 mbconv_nhwc_pass1_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ wdw,
                          const float* __restrict__ bdw, float* __restrict__ partial,
-                         int H, int W) {
+                         int H, int W, int row_lo, int row_hi) {
   using G = Geo<C>;
   extern __shared__ __align__(16) unsigned char smem[];
   uint16_t* xs = reinterpret_cast<uint16_t*>(smem);
@@ -177,12 +177,14 @@ mbconv_nhwc_pass1_kernel(const uint16_t* __restrict__ x, const uint16_t* __restr
   load_dw(wdw, bdw, cg * 8, w, b);
 
   const bool col_in = w0 + col < W;
-  const int rows = H - h0;                 // output rows inside the image
+  // the tile rows counted: output rows [row_lo, row_hi) of the image (the
+  // whole image by default; a band's own rows of a haloed band)
+  const int lo = row_lo - h0, hi = row_hi - h0;
   float sum[8];
 #pragma unroll
   for (int k = 0; k < 8; ++k) sum[k] = 0.f;
   auto add = [&](int o, const float (&v)[8]) {
-    if (col_in && o < rows) {
+    if (col_in && o >= lo && o < hi) {
 #pragma unroll
       for (int k = 0; k < 8; ++k) sum[k] += v[k];
     }
@@ -351,7 +353,7 @@ int prepare_or_launch(K kernel, int smem, int* blocks, int nt) {
 
 template <int C, int TH>
 int launch_pass1(const void* x, const void* wdw, const void* bdw, void* partial, int N,
-                 int H, int W, int* blocks, cudaStream_t s) {
+                 int H, int W, int row_lo, int row_hi, int* blocks, cudaStream_t s) {
   using G = Geo<C>;
   const int smem = pass1_smem<C, TH>();
   const int e = prepare_or_launch(mbconv_nhwc_pass1_kernel<C, TH>, smem, blocks, G::NT);
@@ -359,7 +361,7 @@ int launch_pass1(const void* x, const void* wdw, const void* bdw, void* partial,
   const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, N);
   mbconv_nhwc_pass1_kernel<C, TH><<<grid, G::NT, smem, s>>>(
       static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(wdw),
-      static_cast<const float*>(bdw), static_cast<float*>(partial), H, W);
+      static_cast<const float*>(bdw), static_cast<float*>(partial), H, W, row_lo, row_hi);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -385,18 +387,21 @@ int launch_pass2(const void* x, const void* wdw, const void* bdw, const void* wp
 
 // x [N,H,W,C] bf16; wdw [C,3,3] bf16; bdw [C] fp32 (all 16-byte aligned);
 // partial [N, C, ceil(H/TH) * ceil(W/32)] fp32.  C a multiple of 8, <= 64;
-// TH (tile rows) 8 or 16.  With `blocks` not null, nothing is launched:
-// *blocks <- the blocks of that kernel one SM holds.
+// TH (tile rows) 8 or 16.  Only output rows [row_lo, row_hi) are summed
+// (0 <= row_lo <= row_hi <= H; 0, H: every row).  With `blocks` not null,
+// nothing is launched: *blocks <- the blocks of that kernel one SM holds.
 extern "C" int mbconv_nhwc_pass1(const void* x, const void* wdw, const void* bdw,
                                  void* partial, int N, int C, int H, int W, int TH,
-                                 int* blocks, void* stream) {
+                                 int row_lo, int row_hi, int* blocks, void* stream) {
+  if (!blocks && (row_lo < 0 || row_lo > row_hi || row_hi > H))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C * 100 + TH) {
 #define CASE(c)                                                                 \
   case c * 100 + 8:                                                             \
-    return launch_pass1<c, 8>(x, wdw, bdw, partial, N, H, W, blocks, s);        \
-  case c * 100 + 16:                                                            \
-    return launch_pass1<c, 16>(x, wdw, bdw, partial, N, H, W, blocks, s);
+    return launch_pass1<c, 8>(x, wdw, bdw, partial, N, H, W, row_lo, row_hi, blocks, s); \
+  case c * 100 + 16:                                                                     \
+    return launch_pass1<c, 16>(x, wdw, bdw, partial, N, H, W, row_lo, row_hi, blocks, s);
     MBCONV_NHWC_CHANNELS(CASE)
 #undef CASE
     default:

@@ -21,6 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from enhanced_unet_tpu_torch.ops import bands
 from enhanced_unet_tpu_torch.ops.kernels.conv_fused import (
     PackedConv3x3,
     fold_bn_params,
@@ -134,19 +135,25 @@ def conv_bn_act(x: torch.Tensor, layer: nn.Conv2d, bn: Optional[nn.BatchNorm2d],
     """Conv -> BN (none when `bn` is None: the conv's bias alone) ->
     optional ReLU.  In eval mode a 3x3, stride-1, undilated, ungrouped conv
     goes through the fused conv3x3+BN+ReLU kernel with its weights packed
-    once (its plain version on the CPU), and raises when autograd would
-    record it; train mode (batch statistics, which a folded BN cannot give)
-    and any other conv run as plain PyTorch."""
+    once (its plain version on the CPU; on a band of a spatially split map,
+    on the band haloed by a row, `ops.bands`), and raises when autograd
+    would record it; train mode (batch statistics, which a folded BN cannot
+    give) and any other conv run as plain PyTorch."""
     training = layer.training if bn is None else bn.training
     if (not training and layer.kernel_size == (3, 3) and layer.stride == (1, 1)
             and layer.dilation == (1, 1) and layer.groups == 1):
         params = [layer.weight, layer.bias] + ([] if bn is None else [bn.weight, bn.bias])
         refuse_autograd(f"3x3 ConvBNAct {layer.in_channels}->{layer.out_channels}",
                         [p for p in params if p is not None])
-        xh = x.to(dtype).permute(0, 2, 3, 1).contiguous()
-        y = fused_conv3x3_bn_relu_packed(
-            xh, packed_conv3x3(layer, bn, dtype, xh.device), relu=relu)
-        return y.permute(0, 3, 1, 2)
+
+        def fused(x, own=None):
+            xh = x.to(dtype).permute(0, 2, 3, 1).contiguous()
+            y = fused_conv3x3_bn_relu_packed(
+                xh, packed_conv3x3(layer, bn, dtype, xh.device), relu=relu)
+            return y.permute(0, 3, 1, 2)
+
+        band = bands.active()           # a band of rows of a spatially split map
+        return fused(x) if band is None else band.stencil(x, 1, fused)
     y = conv(x, layer, dtype)
     if bn is not None:
         y = batch_norm(y, bn)

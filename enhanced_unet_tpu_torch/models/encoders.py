@@ -35,6 +35,7 @@ from enhanced_unet_tpu_torch.models.blocks import (
     need_generator,
     refuse_autograd,
 )
+from enhanced_unet_tpu_torch.ops import bands
 from enhanced_unet_tpu_torch.ops.kernels.mbconv import (
     MBConvWeights,
     fold_mbconv_weights,
@@ -300,6 +301,13 @@ class MBConvBlock(nn.Module):
         if self.fused and not self.training:
             refuse_autograd(f"fused MBConvBlock {self.cin}->{self.cout}",
                             self.parameters())
+            band = bands.active()       # a band of rows of a spatially split map
+            if band is not None:
+                # pass 1 sums the band's own rows, all-reduced; the gate
+                # divides by the whole map's pixels
+                return band.stencil(x, 1, lambda xh, own: mbconv_infer_nchw(
+                    xh.to(self.dtype), self.fold(), residual=self.residual,
+                    rows=own.rows, reduce=own.reduce, hw=own.hw))
             return mbconv_infer_nchw(x.to(self.dtype), self.fold(),
                                      residual=self.residual)
         dt = self.dtype

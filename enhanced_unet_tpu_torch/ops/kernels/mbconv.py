@@ -53,12 +53,19 @@ Three pairs of kernels, chosen by shape and dtype alone (`variant_for`):
   plans the tiles (`mbconv_nchw_tiles` gives the partial sums' tile
   count) and takes W not a multiple of 16 bytes or a misaligned start in
   an element-wise instantiation.
+
+Spatial partitioning (`parallel/spatial.py`) hands a block a band of rows
+haloed by one row on each side: pass 1 then sums only the output rows
+`rows = (lo, hi)` the band owns (a window the `nhwc` kernel and the
+`nchw` row-streaming kernel take; `*_window` counts), `reduce` adds the
+other bands' sums, and the gate divides by the whole map's `hw`.  Pass 2
+runs unchanged on the haloed band.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -67,7 +74,9 @@ from enhanced_unet_tpu_torch.ops.kernels import build
 
 LAUNCHES = {"mbconv_pass1": 0, "mbconv_pass2": 0,
             "mbconv_nhwc_pass1": 0, "mbconv_nhwc_pass2": 0,
-            "mbconv_nhwc_expand_pass1": 0, "mbconv_nhwc_expand_pass2": 0}
+            "mbconv_nhwc_expand_pass1": 0, "mbconv_nhwc_expand_pass2": 0,
+            # pass 1 with a counted-rows window (a band of a spatially split map)
+            "mbconv_pass1_window": 0, "mbconv_nhwc_pass1_window": 0}
 _SOURCE = "mbconv"
 _NHWC_SOURCE = "mbconv_nhwc"
 NHWC_TILE_W = 32                   # csrc/mbconv_nhwc.cu TW
@@ -142,9 +151,22 @@ def _dw_silu_plain(x: torch.Tensor, p: MBConvWeights) -> torch.Tensor:
     return y * torch.sigmoid(y)
 
 
-def mbconv_pass1_plain(x: torch.Tensor, p: MBConvWeights) -> torch.Tensor:
-    """Plain pass 1: per-image channel sums [N, mid] (fp32)."""
-    return _dw_silu_plain(x, p).sum(dim=(2, 3))
+def _window(rows: Optional[Tuple[int, int]], h: int) -> Tuple[int, int]:
+    """The counted output rows (lo, hi): `rows`, checked, or all h."""
+    if rows is None:
+        return 0, h
+    lo, hi = int(rows[0]), int(rows[1])
+    if not 0 <= lo <= hi <= h:
+        raise ValueError(f"counted rows {rows} are not inside the {h} rows of the map")
+    return lo, hi
+
+
+def mbconv_pass1_plain(x: torch.Tensor, p: MBConvWeights,
+                       rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Plain pass 1: per-image channel sums [N, mid] (fp32) over the output
+    rows `rows` = (lo, hi) (default: all)."""
+    lo, hi = _window(rows, x.shape[2])
+    return _dw_silu_plain(x, p)[:, :, lo:hi].sum(dim=(2, 3))
 
 
 def mbconv_pass2_plain(x: torch.Tensor, p: MBConvWeights, wpp: torch.Tensor,
@@ -158,11 +180,17 @@ def mbconv_pass2_plain(x: torch.Tensor, p: MBConvWeights, wpp: torch.Tensor,
     return o.to(x.dtype)
 
 
-def mbconv_infer_nchw_plain(x: torch.Tensor, p: MBConvWeights, *,
-                            residual: bool) -> torch.Tensor:
-    """Plain version of the two-pass block: x [N,Cin,H,W] -> [N,Cout,H,W]."""
-    wpp = se_gated_projection(mbconv_pass1_plain(x, p), p,
-                              x.shape[2] * x.shape[3], x.dtype)
+def mbconv_infer_nchw_plain(x: torch.Tensor, p: MBConvWeights, *, residual: bool,
+                            rows: Optional[Tuple[int, int]] = None,
+                            reduce: Optional[Callable[[torch.Tensor], None]] = None,
+                            hw: Optional[int] = None) -> torch.Tensor:
+    """Plain version of the two-pass block: x [N,Cin,H,W] -> [N,Cout,H,W];
+    `rows`, `reduce` and `hw` as for `mbconv_infer_nchw`."""
+    sums = mbconv_pass1_plain(x, p, rows)
+    if reduce is not None:
+        reduce(sums)
+    wpp = se_gated_projection(sums, p, x.shape[2] * x.shape[3] if hw is None else hw,
+                              x.dtype)
     return mbconv_pass2_plain(x, p, wpp, residual)
 
 
@@ -174,7 +202,7 @@ def bind_nchw(lib: ctypes.CDLL) -> ctypes.CDLL:
     """A library built from `csrc/mbconv.cu`, its C interface typed."""
     if lib.mbconv_pass1.restype is not ctypes.c_int:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.mbconv_pass1.argtypes = [vp] * 6 + [i] * 6 + [vp]
+        lib.mbconv_pass1.argtypes = [vp] * 6 + [i] * 8 + [vp]
         lib.mbconv_pass1.restype = i
         lib.mbconv_pass2.argtypes = [vp] * 8 + [i] * 8 + [vp]
         lib.mbconv_pass2.restype = i
@@ -218,20 +246,27 @@ def _prepare(x: torch.Tensor, p: MBConvWeights) -> _Launch:
         bf16=x.dtype == torch.bfloat16)
 
 
-def mbconv_pass1(x: torch.Tensor, p: MBConvWeights) -> torch.Tensor:
-    """Pass 1 on the card: per-image channel sums [N, mid] (fp32).  The
-    kernel writes one partial sum per (image, tile, channel), the tiles as
-    the library plans them; they are summed here in a fixed order."""
+def mbconv_pass1(x: torch.Tensor, p: MBConvWeights,
+                 rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Pass 1 on the card: per-image channel sums [N, mid] (fp32) over the
+    output rows `rows` = (lo, hi) (default: all; a window only without an
+    expand, on the row-streaming kernel, counted as `mbconv_pass1_window`).
+    The kernel writes one partial sum per (image, tile, channel), the tiles
+    as the library plans them; they are summed here in a fixed order."""
     a = _prepare(x, p)
     n, cin, h, w = a.x.shape
     mid = p.wdw.shape[0]
+    lo, hi = _window(rows, h)
+    if rows is not None and a.wexp is not None:
+        raise ValueError("the tiled nchw pass 1 (a block with an expand) takes no "
+                         "counted-rows window")
     tiles = a.lib.mbconv_nchw_tiles(h, w, int(a.wexp is not None), int(a.bf16))
     partial = torch.empty((n, tiles, mid), dtype=torch.float32, device=x.device)
     rc = a.lib.mbconv_pass1(build.ptr(a.x), build.ptr(a.wexp), build.ptr(a.bexp),
                             build.ptr(a.wdw), build.ptr(a.bdw), build.ptr(partial),
-                            n, cin, mid, h, w, int(a.bf16), build.stream_ptr(x.device))
+                            n, cin, mid, h, w, lo, hi, int(a.bf16), build.stream_ptr(x.device))
     build.check(rc, "mbconv pass 1 launch")
-    LAUNCHES["mbconv_pass1"] += 1
+    LAUNCHES["mbconv_pass1" if rows is None else "mbconv_pass1_window"] += 1
     return partial.sum(dim=1)
 
 
@@ -277,7 +312,7 @@ def _nhwc_lib() -> ctypes.CDLL:
     lib = build.load(_NHWC_SOURCE)
     if lib.mbconv_nhwc_pass1.restype is not ctypes.c_int:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.mbconv_nhwc_pass1.argtypes = [vp] * 4 + [i] * 5 + [vp] * 2
+        lib.mbconv_nhwc_pass1.argtypes = [vp] * 4 + [i] * 7 + [vp] * 2
         lib.mbconv_nhwc_pass1.restype = i
         lib.mbconv_nhwc_pass2.argtypes = [vp] * 6 + [i] * 7 + [vp] * 2
         lib.mbconv_nhwc_pass2.restype = i
@@ -326,8 +361,8 @@ def _nhwc_slots(source: str, which: int, c: int, cout: int, th: int,
                   lib.mbconv_nhwc_expand_pass2(*null, None, None, 0, c, 0, cout, 0, 0,
                                                0, th, ctypes.byref(blocks), None))
         elif which == 1:
-            rc = _nhwc_lib().mbconv_nhwc_pass1(None, None, None, None, 0, c, 0, 0, th,
-                                               ctypes.byref(blocks), None)
+            rc = _nhwc_lib().mbconv_nhwc_pass1(None, None, None, None, 0, c, 0, 0, th, 0,
+                                               0, ctypes.byref(blocks), None)
         else:
             rc = _nhwc_lib().mbconv_nhwc_pass2(None, None, None, None, None, None, 0, c,
                                                cout, 0, 0, 0, th, ctypes.byref(blocks),
@@ -370,21 +405,25 @@ def _nhwc_prepare(x: torch.Tensor, p: MBConvWeights,
     return xh
 
 
-def mbconv_nhwc_pass1(x: torch.Tensor, p: MBConvWeights) -> torch.Tensor:
+def mbconv_nhwc_pass1(x: torch.Tensor, p: MBConvWeights,
+                      rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Pass 1 of the `nhwc` kernels: per-image channel sums [N, mid] (fp32)
-    of NCHW x (channels_last memory read in place).  One partial sum per
-    (image, channel, tile), summed here in a fixed order."""
+    of NCHW x (channels_last memory read in place) over the output rows
+    `rows` = (lo, hi) (default: all; with a window counted as
+    `mbconv_nhwc_pass1_window`).  One partial sum per (image, channel,
+    tile), summed here in a fixed order."""
     xh = _nhwc_prepare(x, p)
     n, h, w, c = xh.shape
+    lo, hi = _window(rows, h)
     th = _tile_rows(_NHWC_SOURCE, 1, xh, c)
     partial = torch.empty((n, c, -(-h // th) * -(-w // NHWC_TILE_W)), dtype=torch.float32,
                           device=x.device)
     ptrs, _keep = _weight_operands(x, p, False)
     rc = _nhwc_lib().mbconv_nhwc_pass1(
-        build.ptr(xh), *ptrs, build.ptr(partial), n, c, h, w, th, None,
+        build.ptr(xh), *ptrs, build.ptr(partial), n, c, h, w, th, lo, hi, None,
         build.stream_ptr(x.device))
     build.check(rc, "mbconv_nhwc pass 1 launch")
-    LAUNCHES["mbconv_nhwc_pass1"] += 1
+    LAUNCHES["mbconv_nhwc_pass1" if rows is None else "mbconv_nhwc_pass1_window"] += 1
     return partial.sum(dim=2)
 
 
@@ -467,16 +506,25 @@ def mbconv_nhwc_expand_pass2(x: torch.Tensor, p: MBConvWeights, wpp: torch.Tenso
     return out.permute(0, 3, 1, 2)
 
 
-def mbconv_infer_nchw(x: torch.Tensor, p: MBConvWeights, *,
-                      residual: bool) -> torch.Tensor:
+def mbconv_infer_nchw(x: torch.Tensor, p: MBConvWeights, *, residual: bool,
+                      rows: Optional[Tuple[int, int]] = None,
+                      reduce: Optional[Callable[[torch.Tensor], None]] = None,
+                      hw: Optional[int] = None) -> torch.Tensor:
     """Fused MBConv inference on NCHW input [N, Cin, H, W] (bf16 or fp32,
     any memory format).  CPU tensor: the plain version.  CUDA tensor: the
     two kernels of `variant_for(x, p)` with the SE gate between them, or an
     error for what they do not take.  The `nhwc` and `nhwc_expand` kernels
-    return a channels_last result, the `nchw` kernels a contiguous one."""
+    return a channels_last result, the `nchw` kernels a contiguous one.
+
+    On a band of a spatially split map: pass 1 sums only the output rows
+    `rows` = (lo, hi) (the `nhwc` and the row-streaming `nchw` kernels; any
+    other variant raises), `reduce(sums)` adds the other bands' sums in
+    place, and the gate divides by `hw`, the whole map's pixels (default
+    H * W).  Pass 2 computes every row of x."""
     if x.device.type == "cpu":
-        return mbconv_infer_nchw_plain(x, p, residual=residual)
-    hw = x.shape[2] * x.shape[3]
+        return mbconv_infer_nchw_plain(x, p, residual=residual, rows=rows, reduce=reduce,
+                                       hw=hw)
+    hw = x.shape[2] * x.shape[3] if hw is None else hw
     variant = variant_for(x, p)
     if variant == "nchw":
         pass1, pass2 = mbconv_pass1, mbconv_pass2
@@ -484,5 +532,13 @@ def mbconv_infer_nchw(x: torch.Tensor, p: MBConvWeights, *,
         x = x.contiguous(memory_format=torch.channels_last)
         pass1, pass2 = ((mbconv_nhwc_pass1, mbconv_nhwc_pass2) if variant == "nhwc" else
                         (mbconv_nhwc_expand_pass1, mbconv_nhwc_expand_pass2))
-    wpp = se_gated_projection(pass1(x, p), p, hw, x.dtype)
+    if rows is None:
+        sums = pass1(x, p)
+    elif variant == "nhwc_expand":
+        raise ValueError("the nhwc_expand pass 1 takes no counted-rows window")
+    else:
+        sums = pass1(x, p, rows)
+    if reduce is not None:
+        reduce(sums)
+    wpp = se_gated_projection(sums, p, hw, x.dtype)
     return pass2(x, p, wpp, residual)

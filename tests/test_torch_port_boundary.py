@@ -70,7 +70,8 @@ for name in ("enhanced_unet_tpu_torch.ops.kernels.mbconv",
              "enhanced_unet_tpu_torch.models.linknet", "enhanced_unet_tpu_torch.cli",
              "enhanced_unet_tpu_torch.parallel", "enhanced_unet_tpu_torch.parallel.mesh",
              "enhanced_unet_tpu_torch.parallel.data_parallel",
-             "enhanced_unet_tpu_torch.parallel.tiled"):
+             "enhanced_unet_tpu_torch.parallel.tiled",
+             "enhanced_unet_tpu_torch.parallel.spatial", "enhanced_unet_tpu_torch.ops.bands"):
     assert name in walked and name in loaded, name
 print("BOUNDARY OK", len(walked))
 """
@@ -93,7 +94,7 @@ def _imported_names(path):
 _PORT_FILES = sorted(
     os.path.relpath(os.path.join(d, f), REPO)
     for d, _, files in os.walk(os.path.join(REPO, "enhanced_unet_tpu_torch"))
-    for f in files if f.endswith(".py")) + ["chip_smoke.py"]
+    for f in files if f.endswith(".py")) + ["chip_smoke.py", "tests/spatial_ranks.py"]
 
 
 def test_import_loads_no_jax_and_nothing_of_the_jax_package():

@@ -953,3 +953,112 @@ def test_max_pool_with_indices_on_card_takes_the_first_maximum(cuda, dtype):
     assert torch.equal(pooled.cpu(), want_pooled) and torch.equal(idx.cpu(), want_idx)
     assert torch.equal(blocks.max_unpool_2x2(pooled, idx).cpu(),
                        blocks.max_unpool_2x2(want_pooled, want_idx))
+
+
+# ---- spatial partitioning: K1's counted-rows window, K2 on a haloed band ----
+
+@pytest.mark.parametrize("dtype,n,c,h,w,rows", [
+    (torch.bfloat16, 2, 48, 66, 70, (1, 33)), (torch.bfloat16, 1, 24, 40, 64, (17, 39)),
+    (torch.bfloat16, 2, 8, 20, 33, (0, 20)), (torch.bfloat16, 1, 24, 18, 40, (5, 5)),
+    (torch.float32, 2, 48, 66, 70, (1, 33)), (torch.float32, 1, 24, 40, 64, (17, 39)),
+    (torch.float32, 1, 16, 20, 33, (0, 20)),
+])
+def test_mbconv_windowed_pass1_matches_plain(cuda, monkeypatch, dtype, n, c, h, w, rows):
+    from enhanced_unet_tpu_torch.models import init_random_weights_
+    from enhanced_unet_tpu_torch.models.encoders import MBConvBlock
+    from enhanced_unet_tpu_torch.ops.kernels import mbconv
+
+    block = MBConvBlock(c, c, 1, 1, 3, fused=True, dtype=dtype)
+    init_random_weights_(block, 4).eval().to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn(n, h, w, c, generator=g, device=cuda).to(dtype).permute(0, 3, 1, 2)
+    nhwc = dtype == torch.bfloat16
+    if not nhwc:
+        x = x.contiguous()
+    pass1 = mbconv.mbconv_nhwc_pass1 if nhwc else mbconv.mbconv_pass1
+    key = "mbconv_nhwc_pass1" if nhwc else "mbconv_pass1"
+    with torch.no_grad():
+        p = block.fold()
+        assert mbconv.variant_for(x, p) == ("nhwc" if nhwc else "nchw")
+        want = mbconv.mbconv_pass1_plain(x, p, rows)
+        scale = mbconv.mbconv_pass1_plain(x, p).abs().max()
+        for th in ((8, 16) if nhwc else (None,)):
+            if th is not None:
+                monkeypatch.setattr(mbconv, "nhwc_tile_rows", lambda *a, r=th: r)
+            before = dict(mbconv.LAUNCHES)
+            got = pass1(x, p, rows)
+            torch.cuda.synchronize()
+            moved = {k: v - before[k] for k, v in mbconv.LAUNCHES.items() if v != before[k]}
+            assert moved == {key + "_window": 1}
+            assert (got - want).abs().max() <= 1e-3 * scale
+        # the whole map as the window: the unwindowed launch's sums, bitwise
+        assert torch.equal(pass1(x, p, (0, h)), pass1(x, p))
+
+
+def test_mbconv_window_is_refused_where_the_kernel_takes_none(cuda):
+    from enhanced_unet_tpu_torch.models import init_random_weights_
+    from enhanced_unet_tpu_torch.models.encoders import MBConvBlock
+    from enhanced_unet_tpu_torch.ops.kernels import mbconv
+
+    def case(cin, ratio, dtype):
+        block = init_random_weights_(MBConvBlock(cin, cin, ratio, 1, 3, fused=True,
+                                                 dtype=dtype), 1).eval().to(cuda)
+        x = torch.randn(1, 16, 16, cin, device=cuda).to(dtype).permute(0, 3, 1, 2)
+        return x, block.fold()
+
+    with torch.no_grad():
+        x, p = case(40, 6, torch.bfloat16)                     # nhwc_expand
+        with pytest.raises(ValueError, match="no counted-rows window"):
+            mbconv.mbconv_infer_nchw(x, p, residual=True, rows=(1, 15))
+        x, p = case(40, 6, torch.float32)                      # the tiled nchw pass 1
+        with pytest.raises(ValueError, match="no counted-rows window"):
+            mbconv.mbconv_pass1(x.contiguous(), p, (1, 15))
+        x, p = case(24, 1, torch.bfloat16)
+        with pytest.raises(ValueError, match="not inside"):
+            mbconv.mbconv_nhwc_pass1(x, p, (3, 17))
+
+
+@pytest.mark.parametrize("dtype,cin,cout", [(torch.bfloat16, 64, 128),
+                                            (torch.bfloat16, 3, 64),
+                                            (torch.float32, 32, 48)])
+def test_k2_on_haloed_bands_matches_the_unsharded_conv(cuda, dtype, cin, cout):
+    from enhanced_unet_tpu_torch.ops.kernels import conv_fused
+
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn(1, 64, 72, cin, generator=g, device=cuda).to(dtype)
+    w = torch.randn(3, 3, cin, cout, generator=g, device=cuda) / (9 * cin) ** 0.5
+    scale = torch.rand(cout, generator=g, device=cuda) + 0.5
+    shift = torch.randn(cout, generator=g, device=cuda) * 0.1
+    packed = conv_fused.pack_conv3x3(w, scale, shift, dtype, cuda)
+    whole = conv_fused.fused_conv3x3_bn_relu_packed(x, packed)
+    xp = torch.nn.functional.pad(x, (0, 0, 0, 0, 1, 1))      # zeros beyond the image
+    bands = [conv_fused.fused_conv3x3_bn_relu_packed(xp[:, r * 16:r * 16 + 18].contiguous(),
+                                                     packed)[:, 1:-1] for r in range(4)]
+    want = conv_fused.fused_conv3x3_bn_relu_plain(x, w, scale, shift)
+    assert _rel(torch.cat(bands, 1), want) <= _tol(dtype)
+    assert _rel(whole, want) <= _tol(dtype)
+
+
+def test_spatial_apply_on_card_at_world_size_1(cuda, tmp_path):
+    import torch.distributed as dist
+
+    from enhanced_unet_tpu_torch.models import get_model
+    from enhanced_unet_tpu_torch.ops.kernels import conv_fused, mbconv
+    from enhanced_unet_tpu_torch.parallel import make_mesh
+    from enhanced_unet_tpu_torch.parallel.spatial import make_spatial_apply
+
+    tiny = ("efficientnet-tiny", "efficientnet-tiny")
+    model = get_model("enhanced_unet", dtype=torch.float32, encoder_names=tiny)
+    x = torch.rand(1, 128, 96, 3, generator=torch.Generator().manual_seed(2)).to(cuda)
+    mesh = make_mesh(1, "space", init_dir=str(tmp_path))
+    try:
+        with torch.no_grad():
+            want = model(x)[0]
+        k1, k2 = dict(mbconv.LAUNCHES), dict(conv_fused.LAUNCHES)
+        got = make_spatial_apply(model, mesh)(x)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    assert mbconv.LAUNCHES["mbconv_pass1_window"] > k1["mbconv_pass1_window"]
+    assert conv_fused.LAUNCHES["conv3x3_bn_act_f32"] > k2["conv3x3_bn_act_f32"]
+    assert _rel(got, want) <= 1e-4
