@@ -236,10 +236,36 @@ Phases (any failure exits non-zero):
     plain version (bf16 within 2e-2 of max |value|, fp32 within 1e-4), the
     bands' sums against the whole map's, timed beside the plain version,
     pass 1 beside the launch without its window, and the bound;
+9d. tensor parallelism's forward (`parallel/tensor_parallel.py`), inside
+    phase 7's temporary directory: the flagship (full width, bf16, phase 4's
+    weights) on one seeded 2 x 512^2 batch, its own forward in one process
+    first (wall ms, peak memory, parameter bytes); then `shard_params_tp`
+    at `min_channels` 128 and `make_tp_apply` on (a) the grid
+    `make_mesh_2d(1, 1)` over NCCL and (b) `make_mesh_2d(1, 2)`, two spawned
+    ranks sharing the card over gloo, each the first call, then warm, then
+    one call with each collective timed from an idle device (an upper bound
+    of the collectives' cost: the wait for the peer included), every count
+    set to 0 before each call: finite logits within 5e-2 of max |logit| of
+    the one process's with each pixel's class the same on 0.9999 of pixels;
+    the mode's all-gathers and all-reduces; K2's launches by variant and by
+    split (whole, column, row without an epilogue; never a row split with
+    its ReLU), K1's `nhwc` passes on whole weights, no other kernel and no
+    plain version; each rank's peak memory and parameter bytes (at 1 x 2
+    the 267 column-split and 4 row-split weights hold half their bytes).
+    (c) K2 at each shape the 1 x 2 call gave it that phase 4b did not,
+    checked and timed as in 4b (10 calls a timing) and summed over the
+    call; K1 at each shape the 1 x 2 call gave it ([2,48|24,256,256]), with
+    the block's own folded weights from that call: the entry against
+    `mbconv_infer_nchw_plain` and each pass against its plain version, timed
+    beside it and the bound; and what the row split's bf16 partial sums
+    cost in error at the widest row-split shape: the path's result and K2's
+    fused epilogue, each against conv + BN + ReLU in fp32;
 10. a `{"kernels": [...]}` line, each entry's launches counted in the run
     whose time and shape it reports (the serving kernels' also per tiled
-    request, `tiled_launches`; K2's also per zoo request, `zoo_launches`),
-    the card line, and the final JSON line.
+    request, `tiled_launches`; K2's also per zoo request, `zoo_launches`;
+    the serving kernels' per tensor-parallel call on the 1 x 2 grid,
+    `tp_launches`, with K2's and K1's rows at 9d's shapes, `tp_shapes`), the
+    card line, and the final JSON line.
 
 It needs no network and builds into `build/kernels/`.
 """
@@ -2262,6 +2288,442 @@ def phase9c_spatial(card: str, dev, tmp: str, k2_row) -> dict:
     return out
 
 
+TP_HW, TP_BATCH = 512, 2        # phase 9d: the flagship on a seeded 2 x 512^2 batch
+TP_MIN_CHANNELS = 128             # JAX's default: no weight of a stage-0 block is split
+TP_TOL, TP_AGREE = 5e-2, 0.9999   # of max |logit|; pixels of the same class
+TP_K2_ITERS = 10                  # calls per timing of K2's rows at the split shapes
+
+
+def tp_runs(mesh2, x, repeats: int) -> dict:
+    """9d: the flagship (`serving_model`, phase 4's weights) sharded by
+    `shard_params_tp` at `TP_MIN_CHANNELS` on the grid `mesh2`, through
+    `make_tp_apply` on this rank's rows of the batch `x` ([N, H, W, 3] on
+    the host): `repeats` calls (the first, then warm), then one more with
+    each collective timed from an idle device to its end (the host staging
+    under gloo and the wait for the peer ranks included: an upper bound of
+    their cost), every count set to 0 before each.  Returns each plain
+    call's wall ms, the timed call's wall ms and its collectives' own, the
+    last call's logits (on the host), launches, plain-version calls, the
+    mode's `COUNTS`, K2 calls through `models.blocks` ((input shape + Cout,
+    relu) -> [calls, "whole" | "column" | "row"]) and K1 calls through
+    `models.encoders` (`k1_calls`: (input shape, Cout, residual,
+    channels_last) -> calls) with the folded weights of each (`k1_weights`,
+    on the host), this process's peak memory over the calls, and its
+    parameter bytes: all of them, the split weights' (by kind) and what the
+    split weights would hold whole."""
+    import torch
+
+    from enhanced_unet_tpu_torch.models import blocks, encoders
+    from enhanced_unet_tpu_torch.ops.kernels import conv_fused, depthwise, mbconv
+    from enhanced_unet_tpu_torch.ops.partition import split_of
+    from enhanced_unet_tpu_torch.parallel import make_tp_apply, shard_params_tp
+    from enhanced_unet_tpu_torch.parallel import tensor_parallel as tp
+
+    dev = mesh2.device
+    counters = (conv_fused.LAUNCHES, mbconv.LAUNCHES, depthwise.LAUNCHES, tp.COUNTS)
+    model = shard_params_tp(serving_model(device=dev).eval(), mesh2, TP_MIN_CHANNELS)
+    splits = [(p, split_of(p)) for p in model.parameters()]
+    param_bytes = {"all": sum(p.numel() * p.element_size() for p, _ in splits)}
+    for kind in ("column", "row"):
+        mine = [(p, s) for p, s in splits if s is not None and s.kind == kind]
+        param_bytes[kind] = {"count": len(mine),
+                             "bytes": sum(p.numel() * p.element_size() for p, _ in mine),
+                             "whole_bytes": sum(p.numel() * p.element_size() * s.full
+                                                // (s.hi - s.lo) for p, s in mine)}
+    rows = x.shape[0] // mesh2.shape[0]
+    x_local = x[mesh2.data.rank * rows:(mesh2.data.rank + 1) * rows]
+    fwd = make_tp_apply(model, mesh2)
+    k2_entry, k1_entry = blocks.fused_conv3x3_bn_relu_packed, encoders.mbconv_infer_nchw
+    k2_calls, k1_calls, k1_weights, seen = {}, {}, {}, {}
+
+    def recording_k2(xh, packed, relu=True):
+        # the mode counts each K2 call by kind just before it launches
+        kind = next(k for k in ("k2_whole", "k2_column", "k2_row")
+                    if tp.COUNTS[k] != seen[k])
+        seen.update(tp.COUNTS)
+        key = (tuple(xh.shape) + (packed.cout,), relu)
+        k2_calls.setdefault(key, [0, kind[3:]])[0] += 1
+        return k2_entry(xh, packed, relu)
+
+    def recording_k1(xk, p, *, residual, rows=None, reduce=None, hw=None):
+        key = (tuple(xk.shape), p.wproj.shape[1], residual,
+               xk.is_contiguous(memory_format=torch.channels_last))
+        k1_calls[key] = k1_calls.get(key, 0) + 1
+        k1_weights.setdefault(key, p)
+        return k1_entry(xk, p, residual=residual, rows=rows, reduce=reduce, hw=hw)
+
+    collective_ms = [0.0]             # the timed call's collectives' own wall ms
+    real = {"gather": tp.gather, "all_sum_": tp.all_sum_}
+
+    def timed(fn):
+        def run(*args):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize(dev)
+            collective_ms[0] += 1e3 * (time.perf_counter() - t0)
+            return out
+        return run
+
+    plain, restore = count_plain()
+    blocks.fused_conv3x3_bn_relu_packed = recording_k2
+    encoders.mbconv_infer_nchw = recording_k1
+    ms = []
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for call in range(repeats + 1):
+            if call == repeats:
+                tp.gather, tp.all_sum_ = timed(real["gather"]), timed(real["all_sum_"])
+            reset(counters)
+            plain.update(conv3x3_bn_act=0, mbconv=0)
+            k2_calls.clear()
+            k1_calls.clear()
+            seen.update(tp.COUNTS)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                y = fwd(x_local)
+            torch.cuda.synchronize(dev)
+            ms.append(1e3 * (time.perf_counter() - t0))
+    finally:
+        restore()
+        blocks.fused_conv3x3_bn_relu_packed, encoders.mbconv_infer_nchw = k2_entry, k1_entry
+        tp.gather, tp.all_sum_ = real["gather"], real["all_sum_"]
+    weights = {key: {f: None if t is None else t.cpu() for f, t in p._asdict().items()}
+               for key, p in k1_weights.items()}
+    return {"ms": ms[:repeats], "timed_ms": ms[repeats], "collective_ms": collective_ms[0],
+            "peak": torch.cuda.max_memory_allocated(dev),
+            "launches": {k: v for c in counters[:3] for k, v in c.items() if v},
+            "plain": dict(plain), "counts": dict(tp.COUNTS), "k2_calls": dict(k2_calls),
+            "k1_calls": dict(k1_calls), "k1_weights": weights,
+            "logits": y.float().cpu(), "param_bytes": param_bytes}
+
+
+def tp_two_ranks(mesh, out_dir: str):
+    """9d (b), one of two ranks sharing the card over gloo: the grid 1 x 2,
+    `tp_runs` on the batch `out_dir/batch.pt`, two calls and the timed one;
+    each rank writes what it returns, rank 1 without the logits and K1's
+    weights (the ranks of a grid row return the same)."""
+    import os
+
+    import torch
+
+    from enhanced_unet_tpu_torch.parallel import make_mesh_2d
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = torch.load(os.path.join(out_dir, "batch.pt"))
+    out = tp_runs(make_mesh_2d(1, 2, device=mesh.device), x, 2)
+    if mesh.rank:
+        del out["logits"], out["k1_weights"]
+    torch.save(out, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
+
+
+def phase9d_tensor_parallel(card: str, dev, tmp: str, k2_row, covered) -> dict:
+    """9d. Tensor parallelism's forward on the card (see the module
+    docstring); `covered`: the (shape, relu) K2 rows of phase 4b.  Returns
+    the readings, K2's rows at the new shapes and K1's at the 1 x 2 call's,
+    and the partial sums' error."""
+    import os
+
+    import torch
+
+    from enhanced_unet_tpu_torch.parallel import make_mesh_2d, spawn
+
+    t_phase = time.perf_counter()
+    x = torch.from_numpy(synthetic_images(TP_BATCH, TP_HW, 19))
+
+    # ---- one process: the model's own forward (the reference), the first
+    # call and a warm one, its peak and parameter bytes
+    model = serving_model(device=dev).eval()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    with torch.no_grad():
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = model(x.to(dev))[0]
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+    ref = {"ms": ms, "logits": y.float().cpu(), "peak": torch.cuda.max_memory_allocated(),
+           "param_bytes": sum(p.numel() * p.element_size() for p in model.parameters())}
+    del model, y
+
+    def held(r, what):
+        """The checks of one tensor-parallel run against the one-process
+        forward."""
+        logits, want = r["logits"], ref["logits"]
+        masks = logits.argmax(-1)
+        err = (logits - want).abs().max().item() / want.abs().max().item()
+        agree = (masks == want.argmax(-1)).double().mean().item()
+        launches, counts, pb = r["launches"], r["counts"], r["param_bytes"]
+        k2 = launches.get("conv3x3_bn_act_wgmma", 0) + launches.get("conv3x3_bn_act_smallc", 0)
+        k1 = launches.get("mbconv_nhwc_pass1", 0)
+        print(f"[{card}] {what}: wall ms {[round(t, 1) for t in r['ms']]} (one process "
+              f"{[round(t, 1) for t in ref['ms']]}); a call with its collectives timed "
+              f"{r['timed_ms']:.1f}, of it the collectives' {r['collective_ms']:.1f} (each "
+              f"from an idle device: an upper bound, the wait for the peer included); "
+              f"peak {r['peak']} bytes (one process "
+              f"{ref['peak']}); parameter bytes {pb['all']} (one process "
+              f"{ref['param_bytes']}; column splits {pb['column']}, row splits {pb['row']}); "
+              f"collectives {counts['all_gather']} all-gathers, {counts['all_reduce']} "
+              f"all-reduces; K2 calls whole {counts['k2_whole']}, column {counts['k2_column']}, "
+              f"row (no epilogue) {counts['k2_row']}; launches {json.dumps(launches)}; "
+              f"plain-version calls {r['plain']}; max |logit diff| / max |logit| {err:.3e} "
+              f"(tol {TP_TOL:g}); pixels of the same class {agree:.6f} (tol {TP_AGREE})")
+        check(tuple(masks.shape) == tuple(want.shape[:3])
+              and set(masks.unique().tolist()) <= {0, 1, 2}, f"{what}: masks in {{0,1,2}}")
+        check(bool(torch.isfinite(logits).all()), f"{what}: finite logits")
+        check(err <= TP_TOL, f"{what}: logits within {TP_TOL} of the one process's")
+        check(agree >= TP_AGREE, f"{what}: classes agree on {TP_AGREE} of pixels")
+        check(counts["k2_column"] > 0 and counts["k2_row"] > 0,
+              f"{what}: K2 launched on column and on row slices")
+        check(counts["k2_whole"] + counts["k2_column"] + counts["k2_row"] == k2
+              == sum(c for c, _ in r["k2_calls"].values()),
+              f"{what}: every K2 launch one of the recorded calls")
+        check(not any(kind == "row" for (_, relu), (_, kind) in r["k2_calls"].items() if relu),
+              f"{what}: no row-split K2 call with its ReLU epilogue")
+        check(k1 > 0 and launches.get("mbconv_nhwc_pass2", 0) == k1 and not counts["k1_gathered"],
+              f"{what}: K1's nhwc passes launched on whole weights")
+        check(r["plain"] == {"conv3x3_bn_act": 0, "mbconv": 0},
+              f"{what}: no plain version of K1 or K2 ({r['plain']})")
+        other = {k: v for k, v in launches.items() if k not in (
+            "conv3x3_bn_act_wgmma", "conv3x3_bn_act_smallc", "mbconv_nhwc_pass1",
+            "mbconv_nhwc_pass2")}
+        check(not other, f"{what}: no other kernel ({other})")
+        check(sum(r["k1_calls"].values()) == k1, f"{what}: every K1 launch a recorded call")
+        return {"ms": r["ms"], "timed_ms": r["timed_ms"], "collective_ms": r["collective_ms"],
+                "peak": r["peak"], "err": err, "agree": agree, "launches": launches,
+                "counts": counts, "param_bytes": pb}
+
+    out = {"card": card, "one_process": {k: v for k, v in ref.items() if k != "logits"}}
+    # ---- (a) the grid 1 x 1 over NCCL
+    os.makedirs(os.path.join(tmp, "tp1"))
+    mesh2 = make_mesh_2d(1, 1, init_dir=os.path.join(tmp, "tp1"))
+    try:
+        r = tp_runs(mesh2, x, 2)
+    finally:
+        torch.distributed.destroy_process_group()
+    out["1x1"] = held(r, f"tensor parallel flagship {TP_BATCH} x {TP_HW}^2, grid 1 x 1 over NCCL")
+    pb = r["param_bytes"]
+    check(pb["all"] == ref["param_bytes"] and pb["column"]["bytes"] == pb["column"]["whole_bytes"],
+          "1 x 1: every weight whole")
+    del r
+
+    # ---- (b) the grid 1 x 2: two ranks sharing the card over gloo
+    ranks_dir = os.path.join(tmp, "tp2")
+    os.makedirs(ranks_dir)
+    torch.save(x, os.path.join(ranks_dir, "batch.pt"))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    spawn(tp_two_ranks, 2, (ranks_dir,), device="cuda:0", backend="gloo", init_dir=ranks_dir,
+          timeout=600)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(ranks_dir, f"rank{q}.pt")) for q in range(2)]
+    res = held(ranks[0], f"tensor parallel flagship {TP_BATCH} x {TP_HW}^2, grid 1 x 2, two ranks "
+                         f"on one card over gloo, rank 0 (rank 1: wall ms "
+                         f"{[round(t, 1) for t in ranks[1]['ms']]}, peak {ranks[1]['peak']} bytes, "
+                         f"counts {ranks[1]['counts']}, launches "
+                         f"{json.dumps(ranks[1]['launches'])})")
+    for q, rank in enumerate(ranks):
+        pb = rank["param_bytes"]
+        check(pb["column"]["count"] == 267 and pb["row"]["count"] == 4,
+              f"rank {q}: 267 column-split and 4 row-split weights")
+        check(all(2 * pb[k]["bytes"] == pb[k]["whole_bytes"] for k in ("column", "row")),
+              f"rank {q}: the split weights hold half their bytes")
+        check(rank["counts"] == ranks[0]["counts"], f"rank {q}: the same collectives")
+    res.update(ms=[rank["ms"] for rank in ranks], peak=[rank["peak"] for rank in ranks],
+               timed_ms=[rank["timed_ms"] for rank in ranks],
+               collective_ms=[rank["collective_ms"] for rank in ranks], spawn_s=spawn_s)
+    out["1x2"] = res
+    print(f"[{card}] grid 1 x 2: spawn to join {spawn_s:.1f} s")
+
+    # ---- (c) K2 at each shape (b) gave it that phase 4b did not
+    t0 = time.perf_counter()
+    k2_rows = []
+    for (shape, relu), (count, kind) in sorted(ranks[0]["k2_calls"].items()):
+        if (shape, relu) in covered:
+            continue
+        r = k2_row(shape[:5], relu, iters=TP_K2_ITERS)
+        r.update(launches=count, split=kind)
+        print_k2(r, f"tensor parallel ({kind}, {count} a call) ")
+        k2_rows.append(r)
+    check(k2_rows and all(r["variant"] in ("wgmma", "smallc") for r in k2_rows),
+          "every new tensor-parallel K2 shape reaches the wgmma or the small-Cin kernel")
+    check({r["split"] for r in k2_rows} >= {"column", "row"},
+          "K2 held at new column- and row-split shapes")
+    per_call = {k: sum(r["launches"] * r[k] for r in k2_rows)
+                for k in ("ms", "wall_ms", "bound_ms", "library_ms", "library_conv_ms",
+                          "plain_ms")}
+    print(f"K2 per tensor-parallel flagship call on the 1 x 2 grid, its {len(k2_rows)} new shapes "
+          f"({sum(r['launches'] for r in k2_rows)} launches; sum of launches x time): kernel "
+          f"{per_call['ms']:.4f} ms (unheld {per_call['wall_ms']:.4f}), bound "
+          f"{per_call['bound_ms']:.4f}, cuDNN + epilogue {per_call['library_ms']:.4f}, cuDNN "
+          f"conv alone {per_call['library_conv_ms']:.4f}, plain {per_call['plain_ms']:.4f}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    out["k2_rows"], out["k2_per_call"] = k2_rows, per_call
+    row_shapes = [shape for (shape, _), (_, kind) in ranks[0]["k2_calls"].items()
+                  if kind == "row"]
+    out["partial_sums"] = tp_partial_sums(dev, max(row_shapes, key=lambda t: t[1] * t[2]),
+                                          mesh_size=2)
+    out["k1_rows"] = tp_k1_rows(dev, ranks[0]["k1_calls"], ranks[0]["k1_weights"])
+    print(f"[{card}] phase 9d (tensor parallelism): {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def tp_partial_sums(dev, shape, mesh_size: int) -> dict:
+    """9d (c): what K2's row-split call costs in error.  At `shape` (N, H,
+    W, Cin / mesh_size, Cout: one rank's slice), seeded bf16 x and weights
+    with a BN folded to scale and shift: the path's result (K2 on each
+    rank's slice of the input channels with scale 1, shift 0 and no ReLU,
+    the bf16 partial sums added in fp32, then scale, shift and ReLU, cast
+    to bf16 once; also with one rank's whole input, as the grid 1 x 1 runs
+    it) and K2 with its fused epilogue on the whole input, each against
+    conv + BN + ReLU in fp32 on the same bf16 values (TF32 off), as max
+    |diff| / max |reference|."""
+    import torch
+    import torch.nn.functional as F
+
+    from enhanced_unet_tpu_torch.ops.kernels import conv_fused
+
+    n, h, w, cpart, cout = shape
+    cin = cpart * mesh_size
+    g = torch.Generator(device=dev).manual_seed(23)
+    bf16 = torch.bfloat16
+    with torch.no_grad():
+        x = torch.randn(n, h, w, cin, generator=g, device=dev).to(bf16)
+        wt = (torch.randn(3, 3, cin, cout, generator=g, device=dev) / (9 * cin) ** 0.5
+              ).to(bf16).float()
+        sc = torch.rand(cout, generator=g, device=dev) + 0.5
+        sh = torch.randn(cout, generator=g, device=dev) * 0.1
+        ref = torch.relu(F.conv2d(x.permute(0, 3, 1, 2).float(), wt.permute(3, 2, 0, 1),
+                                  padding=1) * sc.view(1, -1, 1, 1) + sh.view(1, -1, 1, 1))
+        ref = ref.permute(0, 2, 3, 1)
+        top = ref.abs().max().item()
+        ones, zeros = torch.ones_like(sc), torch.zeros_like(sh)
+
+        def after_sum(parts):
+            y = sum(q.float() for q in parts)
+            return torch.relu(y * sc + sh).to(bf16)
+
+        def partial(lo, hi):
+            packed = conv_fused.pack_conv3x3(wt[:, :, lo:hi].contiguous(), ones, zeros, bf16,
+                                             dev)
+            return conv_fused.fused_conv3x3_bn_relu_packed(
+                x[..., lo:hi].contiguous(), packed, False)
+
+        split = after_sum([partial(r * cpart, (r + 1) * cpart) for r in range(mesh_size)])
+        one = after_sum([partial(0, cin)])
+        fused = conv_fused.fused_conv3x3_bn_relu_packed(
+            x, conv_fused.pack_conv3x3(wt, sc, sh, bf16, dev), True)
+        torch.cuda.synchronize()
+
+        def err(a, b):
+            return (a.float() - b.float()).abs().max().item() / top
+
+        out = {"shape": f"[{n},{h},{w},{cin}]->{cout} bf16, Cin split {mesh_size} ways",
+               "split_vs_fp32": err(split, ref), "one_rank_vs_fp32": err(one, ref),
+               "fused_vs_fp32": err(fused, ref), "split_vs_fused": err(split, fused)}
+    print(f"K2 row split, the partial sums' dtype, {out['shape']}: max |diff| / max |fp32 "
+          f"conv + BN + ReLU|: bf16 partials, summed in fp32, then BN + ReLU "
+          f"{out['split_vs_fp32']:.3e} ({mesh_size} ranks), {out['one_rank_vs_fp32']:.3e} "
+          f"(one rank); K2's fused epilogue {out['fused_vs_fp32']:.3e}; the two paths apart "
+          f"{out['split_vs_fused']:.3e}")
+    check(all(math.isfinite(v) and v <= 2e-2 for k, v in out.items() if k != "shape"),
+          "K2's row-split path and its fused epilogue within 2e-2 of the fp32 chain")
+    return out
+
+
+def tp_k1_rows(dev, k1_calls: dict, k1_weights: dict) -> list:
+    """9d (c): K1 at each shape the 1 x 2 call gave it (`k1_calls`: (input
+    shape, Cout, residual, channels_last) -> launches a call), with the
+    block's own folded weights from that call (`k1_weights`, on the host),
+    on a seeded input of the same shape and layout: the entry against
+    `mbconv_infer_nchw_plain`, pass 1's sums (within 1e-3 of max |sum|) and
+    pass 2 (from the plain sums' gated weights) against their plain
+    versions, within 2e-2 (bf16) or 1e-4 (fp32) of max |value|; each pass
+    timed beside its plain version and its bound.  Returns the rows."""
+    import torch
+
+    from enhanced_unet_tpu_torch.benchmarks.microtime import device_ms
+    from enhanced_unet_tpu_torch.ops.kernels import mbconv
+
+    g = torch.Generator(device=dev).manual_seed(29)
+    passes = {"nhwc": (mbconv.mbconv_nhwc_pass1, mbconv.mbconv_nhwc_pass2),
+              "nhwc_expand": (mbconv.mbconv_nhwc_expand_pass1,
+                              mbconv.mbconv_nhwc_expand_pass2),
+              "nchw": (mbconv.mbconv_pass1, mbconv.mbconv_pass2)}
+    rows = []
+    for key, count in sorted(k1_calls.items()):
+        (n, c, h, w), cout, res, cl = key
+        p = mbconv.MBConvWeights(**{f: None if t is None else t.to(dev)
+                                    for f, t in k1_weights[key].items()})
+        dtype = p.wdw.dtype
+        with torch.no_grad():
+            x = torch.randn(n, h, w, c, generator=g, device=dev).to(dtype).permute(0, 3, 1, 2)
+            if not cl:
+                x = x.contiguous()
+            variant = mbconv.variant_for(x, p)
+            pass1, pass2 = passes[variant]
+            xk = x.contiguous() if variant == "nchw" else x
+            prefix = "mbconv_" if variant == "nchw" else f"mbconv_{variant}_"
+            before = dict(mbconv.LAUNCHES)
+            got = mbconv.mbconv_infer_nchw(x, p, residual=res)
+            torch.cuda.synchronize()
+            check(all(mbconv.LAUNCHES[prefix + q] - before[prefix + q] == 1
+                      for q in ("pass1", "pass2")),
+                  f"K1 {key}: the entry launched the {variant} kernels")
+            want = mbconv.mbconv_infer_nchw_plain(x, p, residual=res)
+            err = (got.float() - want.float()).abs().max().item()
+            rel = err / want.float().abs().max().item()
+            sums = pass1(xk, p)
+            want1 = mbconv.mbconv_pass1_plain(x, p)
+            err1 = (sums - want1).abs().max().item()
+            rel1 = err1 / want1.abs().max().item()
+            wpp = mbconv.se_gated_projection(want1, p, h * w, dtype)
+            y = pass2(xk, p, wpp, res)
+            torch.cuda.synchronize()
+            y_want = mbconv.mbconv_pass2_plain(x, p, wpp, res)
+            err2 = (y.float() - y_want.float()).abs().max().item()
+            rel2 = err2 / y_want.float().abs().max().item()
+            del got, want, sums, y, y_want
+        bf16 = dtype == torch.bfloat16
+        tol, kind = (2e-2, "bf16") if bf16 else (1e-4, "fp32")
+        mid, expand, es = p.wdw.shape[0], p.wexp is not None, x.element_size()
+        hw = n * h * w
+        ops = (2 * c + 5) * mid * expand + 23 * mid
+        w_bytes = (mid * c * es + mid * 4) * expand + mid * (9 * es + 4)
+        b1, by1 = bound(hw * c * es + w_bytes + n * mid * 4, hw * (ops + mid), kind)
+        b2, by2 = bound(hw * (c + cout) * es + w_bytes + n * mid * cout * es + cout * 4,
+                        hw * (ops + 2 * mid * cout + 2 * cout), kind)
+        what = f"[{n},{c},{h},{w}] mid {mid}"
+        for q, shape, e, r, kernel, plain, b, by in (
+                ("pass1", f"{what} {kind}", err1, rel1, lambda: pass1(xk, p),
+                 lambda: mbconv.mbconv_pass1_plain(x, p), b1, by1),
+                ("pass2", f"{what} ->{cout}{' residual' if res else ''} {kind}", err2, rel2,
+                 lambda: pass2(xk, p, wpp, res),
+                 lambda: mbconv.mbconv_pass2_plain(x, p, wpp, res), b2, by2)):
+            row = dict(name=prefix + q, variant=variant, shape=shape, split="whole",
+                       launches=count, max_abs_err=e, rel_err=r, entry_rel_err=rel,
+                       ms=device_ms(kernel, K1_ITERS),
+                       wall_ms=device_ms(kernel, K1_ITERS, held=False),
+                       plain_ms=device_ms(plain, K1_ITERS),
+                       bound_ms=b, bound_by=by, library_ms=None)
+            print(f"K1 {row['name']} {shape} (tensor parallel, whole weights, {count} a call): "
+                  f"rel err {r:.3e} (tol {1e-3 if q == 'pass1' else tol:g}; the entry "
+                  f"{rel:.3e}, tol {tol:g}); kernel {row['ms']:.4f} ms (unheld "
+                  f"{row['wall_ms']:.4f}), plain {row['plain_ms']:.4f}, bound {b:.4f} ({by})")
+            rows.append(row)
+        check(rel <= tol, f"K1 entry {key} within {tol} of mbconv_infer_nchw_plain")
+        check(rel1 <= 1e-3, f"K1 {variant} pass 1 {key} sums within 1e-3 of the plain version")
+        check(rel2 <= tol, f"K1 {variant} pass 2 {key} within {tol} of the plain version")
+        del x, xk, wpp, p
+    check(rows, "K1 held at the tensor-parallel call's shapes")
+    return rows
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3164,13 +3626,15 @@ def main(argv=None) -> int:
     check(grad64 <= 1e-4, "tiny fp64 gradients within 1e-4 of the cpu")
 
     # ---- 7. the training entry point; 9. the zoo, 9b. the CLI and the
-    # data axis and 9c. spatial partitioning, in its folder
-    zoo_launches, _, spatial = phase7_training_entry(
+    # data axis, 9c. spatial partitioning and 9d. tensor parallelism, in its
+    # folder
+    zoo_launches, _, spatial, tensor = phase7_training_entry(
         card, counters, dev,
         after=lambda tmp, data_dir: (
             phase9_zoo(card, counters, dev, tmp, data_dir, k2_row, set(k2_calls)),
             phase9b_cli_and_data_axis(card, counters, dev, tmp, data_dir),
-            phase9c_spatial(card, dev, tmp, k2_row)))
+            phase9c_spatial(card, dev, tmp, k2_row),
+            phase9d_tensor_parallel(card, dev, tmp, k2_row, set(k2_calls))))
     results.update(spatial["entries"])
 
     # ---- 10. report ------------------------------------------------------
@@ -3226,6 +3690,14 @@ def main(argv=None) -> int:
     # what the spatial flagship's call at world size 1 (9c) launched of the
     # serving kernels
     spatial_kernels = ("conv3x3_bn_act_wgmma", "conv3x3_bn_act_smallc", "mbconv_nhwc_pass2")
+    # what the tensor-parallel flagship's call on the 1 x 2 grid (9d, rank 0)
+    # launched of the serving kernels, and K2's and K1's rows at its shapes
+    tp_kernels = ("conv3x3_bn_act_wgmma", "conv3x3_bn_act_smallc", "mbconv_nhwc_pass1",
+                  "mbconv_nhwc_pass2")
+    tp_rows = {name: [row for row in tensor["k2_rows"]
+                      if f"conv3x3_bn_act_{row['variant']}" == name]
+               + [row for row in tensor["k1_rows"] if row["name"] == name]
+               for name in tp_kernels}
     kernels = []
     for name, (source, replaces) in meta.items():
         r = results[name]
@@ -3241,6 +3713,12 @@ def main(argv=None) -> int:
                            if name in conv_fused.LAUNCHES else {}),
                         **({"spatial_launches": spatial["spatial_launches"].get(name, 0)}
                            if name in spatial_kernels else {}),
+                        **({"tp_launches": tensor["1x2"]["launches"].get(name, 0),
+                            "tp_shapes": [{k: row[k] for k in (
+                                "shape", "split", "launches", "max_abs_err", "ms", "plain_ms",
+                                "bound_ms", "bound_by", "library_ms")}
+                                for row in tp_rows[name]]}
+                           if name in tp_kernels else {}),
                         **{k: r[k] for k in ("library_conv_ms", "library_block_ms", "nchw_ms",
                                              "yardstick_ms", "copy_ratio", "bf16_weights_ms")
                            if k in r},

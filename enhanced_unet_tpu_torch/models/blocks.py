@@ -21,7 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from enhanced_unet_tpu_torch.ops import bands
+from enhanced_unet_tpu_torch.ops import partition
 from enhanced_unet_tpu_torch.ops.kernels.conv_fused import (
     PackedConv3x3,
     fold_bn_params,
@@ -103,31 +103,49 @@ def refuse_autograd(block: str, params) -> None:
 
 
 def packed_conv3x3(layer: nn.Conv2d, bn: Optional[nn.BatchNorm2d],
-                   dtype: torch.dtype, device: torch.device) -> PackedConv3x3:
+                   dtype: torch.dtype, device: torch.device,
+                   cout_slice: Optional[Tuple[int, int]] = None,
+                   epilogue: bool = True) -> PackedConv3x3:
     """The fused kernel's weights for `layer` + `bn` (BN folded, cast,
     permuted), packed once and kept on `layer`.  Without `bn` the scale is 1
-    and the shift the conv's bias.  They are packed again when the conv
-    weight or bias or a BN tensor is replaced or edited in place
+    and the shift the conv's bias.  `cout_slice` = (lo, hi): the layer's
+    weight holds output channels [lo, hi) of its BN's and bias's (tensor
+    parallelism's column split, `ops.partition`), and those are folded.
+    `epilogue=False`: scale 1 and shift 0, the BN and the bias left to the
+    caller (a row split's partial sums).  They are packed again when the
+    conv weight or bias or a BN tensor is replaced or edited in place
     (`load_state_dict`, `.to()`, `weight.mul_`: a new `data_ptr` or
-    `_version`), or for another dtype or device."""
+    `_version`), or for another dtype, device, slice or epilogue."""
     tensors = [layer.weight, layer.bias]
     if bn is not None:
         tensors += [bn.weight, bn.bias, bn.running_mean, bn.running_var]
     key = (tuple(None if t is None else (t.data_ptr(), t._version) for t in tensors),
-           None if bn is None else bn.eps, dtype, device)
+           None if bn is None else bn.eps, dtype, device, cout_slice, epilogue)
     cached = layer.__dict__.get("_packed_conv3x3")
     if cached is not None and cached[0] == key:
         return cached[1]
-    if bn is not None:
-        scale, shift = fold_bn_params(bn.weight, bn.bias, bn.running_mean,
-                                      bn.running_var, bn.eps, layer.bias)
-    else:
-        scale = torch.ones_like(layer.weight[:, 0, 0, 0])
-        shift = torch.zeros_like(scale) if layer.bias is None else layer.bias
+    lo, hi = cout_slice or (0, layer.weight.shape[0])
+    bias = None if layer.bias is None else layer.bias[lo:hi]
+    scale = torch.ones_like(layer.weight[:, 0, 0, 0])
+    shift = torch.zeros_like(scale)
+    if epilogue and bn is not None:
+        scale, shift = fold_bn_params(bn.weight[lo:hi], bn.bias[lo:hi],
+                                      bn.running_mean[lo:hi], bn.running_var[lo:hi],
+                                      bn.eps, bias)
+    elif epilogue and bias is not None:
+        shift = bias
     packed = pack_conv3x3(layer.weight.permute(2, 3, 1, 0), scale, shift, dtype,
                           device)
     layer.__dict__["_packed_conv3x3"] = (key, packed)
     return packed
+
+
+def row_split(layer: nn.Module) -> nn.Module:
+    """Mark `layer` as the conv of its block's second ConvBNAct (the JAX
+    package's `ConvBNAct_1`): tensor parallelism splits its input channels
+    (`parallel.tensor_parallel.tp_param_specs`).  Returns `layer`."""
+    layer.tp_row_split = True
+    return layer
 
 
 def conv_bn_act(x: torch.Tensor, layer: nn.Conv2d, bn: Optional[nn.BatchNorm2d],
@@ -135,10 +153,10 @@ def conv_bn_act(x: torch.Tensor, layer: nn.Conv2d, bn: Optional[nn.BatchNorm2d],
     """Conv -> BN (none when `bn` is None: the conv's bias alone) ->
     optional ReLU.  In eval mode a 3x3, stride-1, undilated, ungrouped conv
     goes through the fused conv3x3+BN+ReLU kernel with its weights packed
-    once (its plain version on the CPU; on a band of a spatially split map,
-    on the band haloed by a row, `ops.bands`), and raises when autograd
-    would record it; train mode (batch statistics, which a folded BN cannot
-    give) and any other conv run as plain PyTorch."""
+    once (its plain version on the CPU; under a partitioned run, a band of
+    rows or a channel slice, as the run says: `ops.partition`), and raises
+    when autograd would record it; train mode (batch statistics, which a
+    folded BN cannot give) and any other conv run as plain PyTorch."""
     training = layer.training if bn is None else bn.training
     if (not training and layer.kernel_size == (3, 3) and layer.stride == (1, 1)
             and layer.dilation == (1, 1) and layer.groups == 1):
@@ -146,14 +164,14 @@ def conv_bn_act(x: torch.Tensor, layer: nn.Conv2d, bn: Optional[nn.BatchNorm2d],
         refuse_autograd(f"3x3 ConvBNAct {layer.in_channels}->{layer.out_channels}",
                         [p for p in params if p is not None])
 
-        def fused(x, own=None):
+        def fused(x, own=None, packed=None, relu=relu):
             xh = x.to(dtype).permute(0, 2, 3, 1).contiguous()
             y = fused_conv3x3_bn_relu_packed(
-                xh, packed_conv3x3(layer, bn, dtype, xh.device), relu=relu)
+                xh, packed or packed_conv3x3(layer, bn, dtype, xh.device), relu=relu)
             return y.permute(0, 3, 1, 2)
 
-        band = bands.active()           # a band of rows of a spatially split map
-        return fused(x) if band is None else band.stencil(x, 1, fused)
+        part = partition.active()       # a band of rows or a channel slice
+        return fused(x) if part is None else part.conv3x3(x, layer, bn, relu, dtype, fused)
     y = conv(x, layer, dtype)
     if bn is not None:
         y = batch_norm(y, bn)
@@ -194,6 +212,7 @@ class DoubleConv(nn.Module):
         super().__init__()
         self.conv1 = ConvBNAct(cin, cout, dtype=dtype)
         self.conv2 = ConvBNAct(cout, cout, dtype=dtype)
+        row_split(self.conv2[0])
 
     def forward(self, x):
         return self.conv2(self.conv1(x))
@@ -294,7 +313,7 @@ class ASPPPooling(nn.Sequential):
 
     def __init__(self, cin: int, cout: int, dtype: torch.dtype = torch.bfloat16):
         super().__init__(nn.AdaptiveAvgPool2d(1),
-                         nn.Conv2d(cin, cout, 1, bias=False),
+                         row_split(nn.Conv2d(cin, cout, 1, bias=False)),
                          nn.BatchNorm2d(cout), nn.ReLU())
         self.dtype = dtype
 
@@ -334,6 +353,7 @@ class UpConcatBlock(nn.Sequential):
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__(ConvBNAct(cin + skip, cout, dtype=dtype),
                          ConvBNAct(cout, cout, dtype=dtype))
+        row_split(self[1][0])
         self.bilinear = bilinear
 
     def forward(self, x, skip=None):
@@ -363,6 +383,7 @@ class PSPModule(nn.Module):
         self.bin_sizes = tuple(bin_sizes)
         self.stages = nn.ModuleList([ConvBNAct(cin, features, 1, dtype=dtype)
                                      for _ in self.bin_sizes])
+        row_split(self.stages[1][0])
 
     def forward(self, x):
         size = x.shape[2:]

@@ -34,8 +34,9 @@ from enhanced_unet_tpu_torch.models.blocks import (
     conv_bn_act,
     need_generator,
     refuse_autograd,
+    row_split,
 )
-from enhanced_unet_tpu_torch.ops import bands
+from enhanced_unet_tpu_torch.ops import partition
 from enhanced_unet_tpu_torch.ops.kernels.mbconv import (
     MBConvWeights,
     fold_mbconv_weights,
@@ -66,7 +67,7 @@ class BasicResBlock(nn.Module):
         super().__init__()
         self.conv1 = nn.Conv2d(cin, width, 3, stride, 1, bias=False)
         self.bn1 = nn.BatchNorm2d(width)
-        self.conv2 = nn.Conv2d(width, width, 3, 1, 1, bias=False)
+        self.conv2 = row_split(nn.Conv2d(width, width, 3, 1, 1, bias=False))
         self.bn2 = nn.BatchNorm2d(width)
         self.downsample = _downsample(cin, width, stride)
         self.dtype = dtype
@@ -89,7 +90,7 @@ class BottleneckResBlock(nn.Module):
         super().__init__()
         self.conv1 = nn.Conv2d(cin, width, 1, bias=False)
         self.bn1 = nn.BatchNorm2d(width)
-        self.conv2 = nn.Conv2d(width, width, 3, stride, 1, bias=False)
+        self.conv2 = row_split(nn.Conv2d(width, width, 3, stride, 1, bias=False))
         self.bn2 = nn.BatchNorm2d(width)
         self.conv3 = nn.Conv2d(width, width * 4, 1, bias=False)
         self.bn3 = nn.BatchNorm2d(width * 4)
@@ -264,12 +265,15 @@ class MBConvBlock(nn.Module):
         self.drop_rate = drop_rate
         self.dtype = dtype
 
-    def fold(self) -> MBConvWeights:
+    def fold(self, whole=None) -> MBConvWeights:
         """Folded weights for the fused kernel, on the parameters' device
         in the compute dtype, folded once and kept on the module.  They are
         folded again when a conv or BN tensor is replaced or edited in place
         (`load_state_dict`, `.to()`, `running_mean.add_`: a new `data_ptr`
-        or `_version`), or for another dtype or device."""
+        or `_version`), or for another dtype or device.  A block that holds
+        a channel slice of a weight (tensor parallelism, `ops.partition`)
+        folds from `whole(t)`, each tensor whole, on every call and keeps
+        nothing; without `whole` it raises `ValueError`."""
         def stats(bn):
             return bn.weight, bn.bias, bn.running_mean, bn.running_var
 
@@ -280,36 +284,44 @@ class MBConvBlock(nn.Module):
                    self._project_conv.weight] + [t for bn in bns for t in stats(bn)]
         if expand:
             tensors.append(self._expand_conv.weight)
+        sliced = any(partition.split_of(t) is not None for t in tensors)
+        if sliced and whole is None:
+            raise ValueError(f"MBConvBlock {self.cin}->{self.cout} holds channel slices of "
+                             "its weights: fold it from its weights gathered whole")
         key = (tuple((t.data_ptr(), t._version) for t in tensors), self.dtype,
                self._depthwise_conv.weight.device)
         cached = self.__dict__.get("_folded")
-        if cached is not None and cached[0] == key:
+        if not sliced and cached is not None and cached[0] == key:
             return cached[1]
+        w = whole if sliced else (lambda t: t)
         with torch.inference_mode(False), torch.no_grad():
             folded = fold_mbconv_weights(
-                self._expand_conv.weight if expand else None,
+                w(self._expand_conv.weight) if expand else None,
                 stats(self._bn0) if expand else None,
-                self._depthwise_conv.weight, stats(self._bn1),
-                (self._se_reduce.weight, self._se_reduce.bias),
-                (self._se_expand.weight, self._se_expand.bias),
-                self._project_conv.weight, stats(self._bn2),
+                w(self._depthwise_conv.weight), stats(self._bn1),
+                (w(self._se_reduce.weight), self._se_reduce.bias),
+                (w(self._se_expand.weight), self._se_expand.bias),
+                w(self._project_conv.weight), stats(self._bn2),
                 eps=_BN_EPS, dtype=self.dtype)
-        self.__dict__["_folded"] = (key, folded)
+        if not sliced:
+            self.__dict__["_folded"] = (key, folded)
         return folded
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
         if self.fused and not self.training:
             refuse_autograd(f"fused MBConvBlock {self.cin}->{self.cout}",
                             self.parameters())
-            band = bands.active()       # a band of rows of a spatially split map
-            if band is not None:
-                # pass 1 sums the band's own rows, all-reduced; the gate
-                # divides by the whole map's pixels
-                return band.stencil(x, 1, lambda xh, own: mbconv_infer_nchw(
-                    xh.to(self.dtype), self.fold(), residual=self.residual,
-                    rows=own.rows, reduce=own.reduce, hw=own.hw))
-            return mbconv_infer_nchw(x.to(self.dtype), self.fold(),
-                                     residual=self.residual)
+
+            def run(xk, weights, own=None):
+                # on a haloed band pass 1 sums the band's own rows,
+                # all-reduced; the gate divides by the whole map's pixels
+                rows = {} if own is None else dict(rows=own.rows, reduce=own.reduce,
+                                                   hw=own.hw)
+                return mbconv_infer_nchw(xk.to(self.dtype), weights,
+                                         residual=self.residual, **rows)
+
+            part = partition.active()   # a band of rows or a channel slice
+            return run(x, self.fold()) if part is None else part.mbconv(x, self, run)
         dt = self.dtype
         y = x
         if self.expand_ratio != 1:

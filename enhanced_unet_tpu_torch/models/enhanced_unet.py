@@ -38,6 +38,7 @@ from enhanced_unet_tpu_torch.models.blocks import (
     conv_bn_act,
     dropout,
     need_generator,
+    row_split,
 )
 from enhanced_unet_tpu_torch.models.encoders import EfficientNetEncoder
 from enhanced_unet_tpu_torch.models.unet import BasicUNet
@@ -243,7 +244,7 @@ class EnhancedUNet(nn.Module):
         self.fusion_head = nn.Sequential(
             nn.Conv2d(fc, 256, 3, padding=1, bias=False), nn.BatchNorm2d(256),
             nn.ReLU(), nn.Dropout2d(fusion_dropout[0]),
-            nn.Conv2d(256, 128, 3, padding=1, bias=False), nn.BatchNorm2d(128),
+            row_split(nn.Conv2d(256, 128, 3, padding=1, bias=False)), nn.BatchNorm2d(128),
             nn.ReLU(), nn.Dropout2d(fusion_dropout[1]),
             nn.Conv2d(128, 64, 3, padding=1, bias=False), nn.BatchNorm2d(64),
             nn.ReLU(), nn.Conv2d(64, num_classes, 1))

@@ -25,6 +25,7 @@ from enhanced_unet_tpu_torch.models.blocks import (
     conv,
     dropout,
     max_pool_2x2,
+    row_split,
 )
 from enhanced_unet_tpu_torch.models.encoders import ResNetEncoder
 from enhanced_unet_tpu_torch.ops.resize import resize_bilinear_nchw, upsample2x_nchw
@@ -39,6 +40,7 @@ class BasicFCN(NHWCModel):
 
         for i, (cin, cout) in enumerate(((3, 64), (64, 128), (128, 256)), 1):
             setattr(self, f"enc{i}", nn.Sequential(cba(cin, cout), cba(cout, cout)))
+        row_split(self.enc1[1][0])
         self.dec3 = cba(256, 128)
         self.dec2 = cba(128, 64)
         self.head = nn.Conv2d(64, num_classes, 1)
@@ -66,6 +68,7 @@ class FPNHead(nn.Module):
                           ConvBNAct(segmentation_channels, segmentation_channels,
                                     dtype=dtype))
             for _ in in_channels])
+        row_split(self.seg_blocks[0][1][0])
         self.dropout = dropout
         self.dtype = dtype
 

@@ -33,6 +33,7 @@ from enhanced_unet_tpu_torch.models.blocks import (
     batch_norm,
     conv,
     max_pool_2x2,
+    row_split,
 )
 from enhanced_unet_tpu_torch.models.encoders import ResNetEncoder
 from enhanced_unet_tpu_torch.ops.resize import upsample2x_nchw
@@ -43,6 +44,7 @@ class BasicLinkNet(NHWCModel):
         super().__init__()
         self.enc1 = ConvBNAct(3, 64, dtype=dtype)
         self.enc2 = ConvBNAct(64, 128, dtype=dtype)
+        row_split(self.enc2[0])
         self.enc3 = ConvBNAct(128, 256, dtype=dtype)
         self.dec3 = ConvBNAct(256, 128, dtype=dtype)
         self.dec2 = ConvBNAct(128, 64, dtype=dtype)
@@ -78,6 +80,7 @@ class LinkNetDecoderBlock(nn.Module):
         self.up = nn.ConvTranspose2d(mid, mid, 3, stride=2)
         self.bn = nn.BatchNorm2d(mid)
         self.conv2 = ConvBNAct(mid, cout, 1, dtype=dtype)
+        row_split(self.conv2[0])
         self.dtype = dtype
 
     def forward(self, x):

@@ -27,6 +27,7 @@ from enhanced_unet_tpu_torch.models.blocks import (
     conv,
     dropout,
     max_pool_2x2,
+    row_split,
 )
 from enhanced_unet_tpu_torch.models.encoders import ResNetEncoder
 from enhanced_unet_tpu_torch.ops.resize import resize_bilinear_nchw, upsample2x_nchw
@@ -39,6 +40,7 @@ class BasicPSPNet(NHWCModel):
         super().__init__()
         self.enc1 = ConvBNAct(3, 64, dtype=dtype)
         self.enc2 = ConvBNAct(64, 128, dtype=dtype)
+        row_split(self.enc2[0])
         self.enc3 = ConvBNAct(128, 256, dtype=dtype)
         self.fuse = ConvBNAct(256 * (1 + len(self.BINS)), 128, dtype=dtype)
         self.head = nn.Conv2d(128, num_classes, 1)

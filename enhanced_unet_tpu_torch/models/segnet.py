@@ -17,15 +17,19 @@ from enhanced_unet_tpu_torch.models.blocks import (
     conv,
     max_pool_with_indices,
     max_unpool_2x2,
+    row_split,
 )
-from enhanced_unet_tpu_torch.models.unet import double_conv
 
 
 class SegNet(NHWCModel):
     def __init__(self, num_classes: int = 3, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
+        # the flax model's ConvBNActs are flat (`ConvBNAct_0` .. `_14`), so
+        # only enc1's second conv sits where tensor parallelism row-splits
         for i, (cin, cout) in enumerate(((3, 64), (64, 128), (128, 256), (256, 512)), 1):
-            setattr(self, f"enc{i}", double_conv(cin, cout, dtype))
+            setattr(self, f"enc{i}", nn.Sequential(ConvBNAct(cin, cout, dtype=dtype),
+                                                   ConvBNAct(cout, cout, dtype=dtype)))
+        row_split(self.enc1[1][0])
         for i, (c, cout) in zip((4, 3, 2), ((512, 256), (256, 128), (128, 64))):
             setattr(self, f"dec{i}", nn.Sequential(ConvBNAct(c, c, dtype=dtype),
                                                    ConvBNAct(c, cout, dtype=dtype)))

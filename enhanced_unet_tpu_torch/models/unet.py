@@ -24,12 +24,15 @@ from enhanced_unet_tpu_torch.models.blocks import (
     UpConcatBlock,
     conv,
     max_pool_2x2,
+    row_split,
 )
 from enhanced_unet_tpu_torch.models.encoders import ResNetEncoder
 
 
 def double_conv(cin: int, cout: int, dtype: torch.dtype) -> nn.Sequential:
-    return nn.Sequential(ConvBNAct(cin, cout, dtype=dtype), ConvBNAct(cout, cout, dtype=dtype))
+    second = ConvBNAct(cout, cout, dtype=dtype)
+    row_split(second[0])
+    return nn.Sequential(ConvBNAct(cin, cout, dtype=dtype), second)
 
 
 class BasicUNet(NHWCModel):

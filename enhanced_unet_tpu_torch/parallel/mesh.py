@@ -60,9 +60,10 @@ class Mesh:
 
     @torch.no_grad()
     def broadcast_(self, tensors: List[torch.Tensor]) -> None:
-        """Overwrite each tensor with rank 0's, in place."""
+        """Overwrite each tensor with the group's rank 0's, in place."""
+        src = dist.get_global_rank(self.group, 0)
         for t in tensors:
-            dist.broadcast(t, src=0, group=self.group)
+            dist.broadcast(t, src=src, group=self.group)
 
     def barrier(self) -> None:
         """Wait until every rank is here, for up to BARRIER_TIMEOUT."""
@@ -116,3 +117,40 @@ def make_mesh(n_devices: Optional[int] = None, axis_name: str = "data", *,
     barrier_group = dist.new_group(backend="gloo", timeout=BARRIER_TIMEOUT)
     return Mesh(group=dist.group.WORLD, rank=rank, size=size, device=dev,
                 barrier_group=barrier_group, axis_name=axis_name)
+
+
+# ---- transport: what the spatial and tensor-parallel axes send ------------
+# NCCL carries device tensors between cards; gloo (the CPU, or ranks sharing
+# one card) takes host tensors only, so a CUDA tensor goes through host
+# memory there while the compute stays on the device.
+
+
+def is_gloo(mesh: Mesh) -> bool:
+    return dist.get_backend(mesh.group) == "gloo"
+
+
+def wire(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """t as the transport takes it: contiguous, in host memory under gloo."""
+    t = t.contiguous()
+    return t.cpu() if t.is_cuda and is_gloo(mesh) else t
+
+
+def gather(mesh: Mesh, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Every rank's equal part of x concatenated along `dim` in rank order
+    (an all-gather), on x's device."""
+    if mesh.size == 1:
+        return x
+    part = wire(mesh, x)
+    parts = [torch.empty_like(part) for _ in range(mesh.size)]
+    dist.all_gather(parts, part, group=mesh.group)
+    return torch.cat(parts, dim).to(x.device)
+
+
+def all_sum_(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """t summed over the ranks, in place."""
+    if mesh.size > 1:
+        w = wire(mesh, t)
+        dist.all_reduce(w, op=dist.ReduceOp.SUM, group=mesh.group)
+        if w is not t:
+            t.copy_(w)
+    return t

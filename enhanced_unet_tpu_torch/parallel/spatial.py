@@ -20,7 +20,7 @@ the device.
   The JAX package gets this from XLA's partitioner; here `SpatialMode`, a
   `TorchFunctionMode`, rewrites each PyTorch call of the forward that reads
   along H with one rule per kind of operation (below), and K2 and K1,
-  which it cannot see, ask it for their haloed band (`ops.bands`).
+  which it cannot see, ask it for their haloed band (`ops.partition`).
 
 Under `SpatialMode` every 4-D tensor in NCHW is a band of a map `size`
 times as tall as it unless it is marked held whole on every rank (what a
@@ -79,24 +79,20 @@ import torch.nn.functional as F
 from torch.overrides import TorchFunctionMode
 
 from enhanced_unet_tpu_torch.models.blocks import packed_conv3x3
-from enhanced_unet_tpu_torch.ops import bands
+from enhanced_unet_tpu_torch.ops import partition
 from enhanced_unet_tpu_torch.ops.kernels.conv_fused import (
     fused_conv3x3_bn_relu,
     fused_conv3x3_bn_relu_packed,
 )
-from enhanced_unet_tpu_torch.parallel.mesh import Mesh
+from enhanced_unet_tpu_torch.parallel.mesh import Mesh, all_sum_, gather, is_gloo, wire
+from enhanced_unet_tpu_torch.parallel.torch_function import (
+    call_args,
+    func_name,
+    replace_tensors,
+    tensors_of,
+)
 
 # ---- transport -----------------------------------------------------------
-
-
-def _gloo(mesh: Mesh) -> bool:
-    return dist.get_backend(mesh.group) == "gloo"
-
-
-def _wire(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
-    """t as the transport takes it: contiguous, in host memory under gloo."""
-    t = t.contiguous()
-    return t.cpu() if t.is_cuda and _gloo(mesh) else t
 
 
 def _exchange(mesh: Mesh, like: torch.Tensor, dim: int,
@@ -106,7 +102,7 @@ def _exchange(mesh: Mesh, like: torch.Tensor, dim: int,
     (tensors shaped as `like` with `rows` along `dim`) together, both
     directions at once so that no rank waits on another's order, and wait
     for them.  Returns the received tensors on `like`'s device."""
-    staged = like.is_cuda and _gloo(mesh)
+    staged = like.is_cuda and is_gloo(mesh)
     ops, bufs = [], []
     for peer, rows in recvs:
         shape = list(like.shape)
@@ -115,32 +111,11 @@ def _exchange(mesh: Mesh, like: torch.Tensor, dim: int,
         bufs.append(buf)
         ops.append(dist.P2POp(dist.irecv, buf, peer, mesh.group))
     for peer, t in sends:
-        ops.append(dist.P2POp(dist.isend, _wire(mesh, t), peer, mesh.group))
+        ops.append(dist.P2POp(dist.isend, wire(mesh, t), peer, mesh.group))
     if ops:
         for work in dist.batch_isend_irecv(ops):
             work.wait()
     return [b.to(like.device) for b in bufs]
-
-
-def _gather(mesh: Mesh, x: torch.Tensor, dim: int) -> torch.Tensor:
-    """Every rank's equal band of x concatenated along `dim` (an
-    all-gather), on x's device."""
-    if mesh.size == 1:
-        return x
-    part = _wire(mesh, x)
-    parts = [torch.empty_like(part) for _ in range(mesh.size)]
-    dist.all_gather(parts, part, group=mesh.group)
-    return torch.cat(parts, dim).to(x.device)
-
-
-def _all_sum_(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
-    """t summed over the ranks, in place."""
-    if mesh.size > 1:
-        wire = _wire(mesh, t)
-        dist.all_reduce(wire, op=dist.ReduceOp.SUM, group=mesh.group)
-        if wire is not t:
-            t.copy_(wire)
-    return t
 
 
 def _fill(like: torch.Tensor, dim: int, rows: int, fill) -> torch.Tensor:
@@ -167,7 +142,7 @@ def _rows(mesh: Mesh, x: torch.Tensor, dim: int,
     reaches = [reach(q) for q in range(mesh.size)]
     lo, hi = need(r)
     if any(a > hl or b > hl for a, b in reaches):
-        first, core = 0, _gather(mesh, x, dim)
+        first, core = 0, gather(mesh, x, dim)
     else:
         above, below = reaches[r]
         sends = []
@@ -269,7 +244,7 @@ def shard_image_h(image: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 def gather_image_h(y_local: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The whole image [H, W, C] again from every rank's band (an
     all-gather along H), on every rank."""
-    return _gather(mesh, y_local, 0)
+    return gather(mesh, y_local, 0)
 
 
 def make_spatial_conv3x3(mesh: Mesh) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
@@ -440,36 +415,8 @@ def _hdim(t) -> Optional[int]:
     return 2 if tag is None else 1 if tag == _NHWC else None
 
 
-def _tensors(obj) -> List[torch.Tensor]:
-    if isinstance(obj, torch.Tensor):
-        return [obj]
-    if isinstance(obj, (list, tuple)):
-        return [t for o in obj for t in _tensors(o)]
-    if isinstance(obj, dict):
-        return [t for o in obj.values() for t in _tensors(o)]
-    return []
-
-
-def _replace(obj, fn):
-    if isinstance(obj, torch.Tensor):
-        return fn(obj)
-    if isinstance(obj, (list, tuple)):
-        return type(obj)(_replace(o, fn) for o in obj)
-    if isinstance(obj, dict):
-        return {k: _replace(v, fn) for k, v in obj.items()}
-    return obj
-
-
 def _pair(v) -> Tuple[int, int]:
     return (int(v), int(v)) if isinstance(v, (int, float)) else (int(v[0]), int(v[1]))
-
-
-def _args(args, kwargs, names, defaults):
-    """Positional and keyword arguments by name."""
-    out = dict(zip(names, defaults))
-    out.update(zip(names, args))
-    out.update(kwargs)
-    return out
 
 
 def _same(h: int, ext: int, s: int) -> Tuple[int, int]:
@@ -485,10 +432,6 @@ def _format(x: torch.Tensor) -> torch.memory_format:
             memory_format=torch.channels_last):
         return torch.channels_last
     return torch.contiguous_format
-
-
-def _name(func) -> str:
-    return getattr(func, "__name__", "") or ""
 
 
 # operations that neither read nor move along H, on any operand
@@ -520,7 +463,7 @@ _REDUCE = frozenset("""
 class SpatialMode(TorchFunctionMode):
     """Run a model's forward on this rank's band of rows of maps split
     along H over `mesh` (the module docstring gives the rules).  While it
-    is active, `ops.bands.active()` is this mode, for K2 and K1."""
+    is active, `ops.partition.active()` is this mode, for K2 and K1."""
 
     def __init__(self, mesh: Mesh):
         super().__init__()
@@ -543,11 +486,11 @@ class SpatialMode(TorchFunctionMode):
     # -- entering and leaving, suspension -----------------------------------
 
     def __enter__(self):
-        bands._ACTIVE.append(self)
+        partition._ACTIVE.append(self)
         return super().__enter__()
 
     def __exit__(self, *exc):
-        bands._ACTIVE.remove(self)
+        partition._ACTIVE.remove(self)
         return super().__exit__(*exc)
 
     @contextlib.contextmanager
@@ -600,7 +543,7 @@ class SpatialMode(TorchFunctionMode):
             slab = _rows(self.mesh, x, 2,
                          lambda q: (q * hol * s - pt, ((q + 1) * hol - 1) * s - pt + ext), fill)
             return op(slab)
-        whole = _gather(self.mesh, x, 2)
+        whole = gather(self.mesh, x, 2)
         value = 0 if fill == "zero" else fill
         whole = torch.cat([_fill(whole, 2, pt, value), whole, _fill(whole, 2, pb, value)], 2)
         return _mark(op(whole), _WHOLE)
@@ -626,7 +569,7 @@ class SpatialMode(TorchFunctionMode):
     # -- the rules -------------------------------------------------------------
 
     def _conv2d(self, func, args, kwargs):
-        a = _args(args, kwargs, ("input", "weight", "bias", "stride", "padding", "dilation",
+        a = call_args(args, kwargs, ("input", "weight", "bias", "stride", "padding", "dilation",
                                  "groups"), (None, None, None, 1, 0, 1, 1))
         x, w = a["input"], a["weight"]
         if _tag(x) == _WHOLE:
@@ -649,7 +592,7 @@ class SpatialMode(TorchFunctionMode):
             "conv2d")
 
     def _conv_transpose2d(self, func, args, kwargs):
-        a = _args(args, kwargs, ("input", "weight", "bias", "stride", "padding",
+        a = call_args(args, kwargs, ("input", "weight", "bias", "stride", "padding",
                                  "output_padding", "groups", "dilation"),
                   (None, None, None, 1, 0, 0, 1, 1))
         x, w = a["input"], a["weight"]
@@ -684,7 +627,7 @@ class SpatialMode(TorchFunctionMode):
         return _mark(y, ("extra", extra)) if extra else y
 
     def _max_pool2d(self, func, args, kwargs):
-        a = _args(args, kwargs, ("input", "kernel_size", "stride", "padding", "dilation",
+        a = call_args(args, kwargs, ("input", "kernel_size", "stride", "padding", "dilation",
                                  "ceil_mode", "return_indices"),
                   (None, None, None, 0, 1, False, False))
         x = a["input"]
@@ -707,7 +650,7 @@ class SpatialMode(TorchFunctionMode):
             lambda rows: func(rows, (kh, kw), (sh, sw), (0, pw), (dh, dw)), "max_pool2d")
 
     def _pad(self, func, args, kwargs):
-        a = _args(args, kwargs, ("input", "pad", "mode", "value"), (None, None, "constant", None))
+        a = call_args(args, kwargs, ("input", "pad", "mode", "value"), (None, None, "constant", None))
         x, pad = a["input"], list(a["pad"])
         if _tag(x) == _WHOLE or not _is_map(x) or len(pad) < 4 or pad[2:4] == [0, 0]:
             return self._local(func, args, kwargs)
@@ -719,7 +662,7 @@ class SpatialMode(TorchFunctionMode):
         return _mark(y, ("pad", pad[2], pad[3], value))
 
     def _interpolate(self, func, args, kwargs):
-        a = _args(args, kwargs, ("input", "size", "scale_factor", "mode", "align_corners",
+        a = call_args(args, kwargs, ("input", "size", "scale_factor", "mode", "align_corners",
                                  "recompute_scale_factor", "antialias"),
                   (None, None, None, "nearest", None, None, False))
         x, mode = a["input"], a["mode"]
@@ -783,7 +726,7 @@ class SpatialMode(TorchFunctionMode):
         return out if banded else _mark(out, _WHOLE)
 
     def _adaptive_avg_pool2d(self, func, args, kwargs):
-        a = _args(args, kwargs, ("input", "output_size"), (None, None))
+        a = call_args(args, kwargs, ("input", "output_size"), (None, None))
         x = a["input"]
         if _tag(x) == _WHOLE or not _is_map(x):
             return self._local(func, args, kwargs)
@@ -806,12 +749,12 @@ class SpatialMode(TorchFunctionMode):
                 counts[i, j] = (a1 - a0) * (b1 - b0)
                 if lo < hi:
                     sums[:, :, i, j] = x[:, :, lo - start:hi - start, b0:b1].float().sum((2, 3))
-        _all_sum_(self.mesh, sums)
+        all_sum_(self.mesh, sums)
         y = (sums / counts).to(x.dtype)
         return _mark(y, _WHOLE) if _is_map(y) else y
 
     def _cat(self, func, args, kwargs):
-        a = _args(args, kwargs, ("tensors", "dim"), (None, 0))
+        a = call_args(args, kwargs, ("tensors", "dim"), (None, 0))
         hdims = {_hdim(t) for t in a["tensors"] if _is_map(t) and _tag(t) != _WHOLE}
         if a["dim"] % 4 in hdims or len(hdims) > 1:
             raise NotImplementedError("spatial partitioning: cat of bands along H")
@@ -870,7 +813,7 @@ class SpatialMode(TorchFunctionMode):
                 return func(*args, **kwargs)
             if k > 1 and len(shape) >= 5 and shape[3] == k and math.prod(shape[4:]) == w:
                 return func(*args, **kwargs)  # rows in groups of k inside the band
-        raise NotImplementedError(f"spatial partitioning: {_name(func)} of a band to {shape}")
+        raise NotImplementedError(f"spatial partitioning: {func_name(func)} of a band to {shape}")
 
     def _expand(self, func, args, kwargs):
         """A per-image vector (held whole, one row) expanded to a size read
@@ -899,12 +842,12 @@ class SpatialMode(TorchFunctionMode):
         return _mark(func(*args, **kwargs), None if at == 2 else _NHWC)
 
     def _reduce(self, func, args, kwargs):
-        name = _name(func)
+        name = func_name(func)
         x = args[0] if args else kwargs.get("input")
         if not _is_map(x) or _tag(x) == _WHOLE:
             return self._local(func, args, kwargs)
         hd = _hdim(x)
-        a = _args(args[1:], {k: v for k, v in kwargs.items() if k != "input"},
+        a = call_args(args[1:], {k: v for k, v in kwargs.items() if k != "input"},
                   ("dim", "keepdim"), (None, False))
         dims = a["dim"]
         dims = tuple(range(4)) if dims is None else (
@@ -915,7 +858,7 @@ class SpatialMode(TorchFunctionMode):
             return _mark(y, _tag(x)) if _is_map(y) else y
         if name not in ("sum", "mean") or hd != 2 or "dtype" in kwargs:
             raise NotImplementedError(f"spatial partitioning: {name} of a band along H")
-        s = _all_sum_(self.mesh, torch.sum(x, dim=dims, keepdim=bool(a["keepdim"]),
+        s = all_sum_(self.mesh, torch.sum(x, dim=dims, keepdim=bool(a["keepdim"]),
                                            dtype=torch.float32))
         if name == "mean":
             s = s / math.prod(x.shape[d] * (self.mesh.size if d == 2 else 1) for d in dims)
@@ -926,19 +869,19 @@ class SpatialMode(TorchFunctionMode):
         """An operation computed on each rank's operands as they are: a
         map held whole meets a band as the band's rows; a result of maps
         held whole only is held whole."""
-        tensors = _tensors((args, kwargs))
+        tensors = tensors_of((args, kwargs))
         tags = [_tag(t) for t in tensors]
         if _NHWC in tags:             # NHWC bands alone: the result is one
             if any(_is_map(t) and g != _NHWC for t, g in zip(tensors, tags)):
-                raise NotImplementedError(f"spatial partitioning: {_name(func)} of an NHWC "
+                raise NotImplementedError(f"spatial partitioning: {func_name(func)} of an NHWC "
                                           "band with another map")
             y = func(*args, **kwargs)
             return _mark(y, _NHWC) if _is_map(y) else y
         pending = [t for t in tags if t is not None and t != _WHOLE]
         if pending:
-            if _name(func) in _LAYOUT and len(tensors) == 1:
+            if func_name(func) in _LAYOUT and len(tensors) == 1:
                 return _mark(func(*args, **kwargs), pending[0])
-            raise NotImplementedError(f"spatial partitioning: {_name(func)} of a band with a "
+            raise NotImplementedError(f"spatial partitioning: {func_name(func)} of a band with a "
                                       f"pending {pending[0][0]}")
         if _WHOLE not in tags:
             return func(*args, **kwargs)
@@ -946,7 +889,7 @@ class SpatialMode(TorchFunctionMode):
         if not banded:
             return _mark(func(*args, **kwargs), _WHOLE)
         hl = banded[0].shape[2]
-        args, kwargs = _replace((args, kwargs), lambda t: self._own(t, hl)
+        args, kwargs = replace_tensors((args, kwargs), lambda t: self._own(t, hl)
                                 if _tag(t) == _WHOLE and t.dim() == 4 else t)
         return func(*args, **kwargs)
 
@@ -957,7 +900,7 @@ class SpatialMode(TorchFunctionMode):
         rule = self._rules.get(func)
         if rule is not None:
             return rule(func, args, kwargs)
-        name = _name(func)
+        name = func_name(func)
         if name in self._method_rules:
             return self._method_rules[name](func, args, kwargs)
         if name in _META:
@@ -969,7 +912,7 @@ class SpatialMode(TorchFunctionMode):
             return self._reduce(func, args, kwargs)
         if name in _LOCAL:
             return self._local(func, args, kwargs)
-        if any(_is_map(t) and _tag(t) != _WHOLE for t in _tensors((args, kwargs))):
+        if any(_is_map(t) and _tag(t) != _WHOLE for t in tensors_of((args, kwargs))):
             raise NotImplementedError(
                 f"spatial partitioning has no rule for {name or func!r} on a band of rows")
         return self._local(func, args, kwargs)
@@ -985,11 +928,22 @@ class SpatialMode(TorchFunctionMode):
             return torch.Size([_Rows(v, kind) if d == hd else v for d, v in enumerate(out)])
         return _Rows(out, kind) if dim and dim[0] % 4 == hd else out
 
-    # -- the fused kernels' hook (ops.bands) ---------------------------------
+    # -- the fused kernels' hook (ops.partition) -----------------------------
+
+    def conv3x3(self, x: torch.Tensor, layer, bn, relu: bool, dtype: torch.dtype,
+                run) -> torch.Tensor:
+        """K2 (`run(xh, own)`) on this rank's band haloed by a row."""
+        return self.stencil(x, 1, run)
+
+    def mbconv(self, x: torch.Tensor, block, run) -> torch.Tensor:
+        """K1 (`run(xh, weights, own)`) on this rank's band haloed by a row,
+        the block's weights whole."""
+        return self.stencil(x, 1, lambda xh, own: run(xh, block.fold(), own))
+
 
     def stencil(self, x: torch.Tensor, halo: int, fn) -> torch.Tensor:
         """`fn(xh, own)` of this rank's band x haloed by `halo` rows (at
-        most a band's; zeros beyond the image), `own` the `ops.bands.Own` of
+        most a band's; zeros beyond the image), `own` the `ops.partition.Own` of
         xh; this rank's rows of its result, which keeps the result as room
         for the next stencil's halo.  A map held whole goes in and comes out
         whole."""
@@ -997,12 +951,12 @@ class SpatialMode(TorchFunctionMode):
         with self.suspended():
             hl = x.shape[2]
             if tag == _WHOLE:
-                own = bands.Own((0, hl), lambda t: None, hl * x.shape[3])
+                own = partition.Own((0, hl), lambda t: None, hl * x.shape[3])
                 return _mark(fn(x, own), _WHOLE)
             if tag is not None:
                 raise NotImplementedError("spatial partitioning: a fused kernel on a "
                                           "marked band")
-            own = bands.Own((halo, halo + hl), lambda t: _all_sum_(self.mesh, t),
+            own = partition.Own((halo, halo + hl), lambda t: all_sum_(self.mesh, t),
                             hl * self.mesh.size * x.shape[3])
             return _with_room(fn(_haloed(self.mesh, x, 2, halo), own), 2, halo)
 

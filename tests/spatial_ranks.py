@@ -78,10 +78,11 @@ def spatial_rank(mesh, inputs_path, out_dir):
     torch.save(out, os.path.join(out_dir, f"out{mesh.rank}.pt"))
 
 
-def zoo_rank(mesh, inputs_path, out_dir):
-    """`make_spatial_apply` of each model of the inputs, on its weights."""
+def apply_rank(mesh, inputs_path, out_dir):
+    """`make_spatial_apply` of each case of the inputs: (model name, its
+    state dict, its kwargs, x)."""
     torch.set_num_threads(1)
     inputs = torch.load(inputs_path)
-    out = {name: _apply(mesh, port_model(name, sd), x)
-           for name, (sd, x) in inputs.items()}
+    out = {key: _apply(mesh, port_model(name, sd, **kwargs), x)
+           for key, (name, sd, kwargs, x) in inputs.items()}
     torch.save(out, os.path.join(out_dir, f"out{mesh.rank}.pt"))

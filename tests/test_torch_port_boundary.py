@@ -71,7 +71,10 @@ for name in ("enhanced_unet_tpu_torch.ops.kernels.mbconv",
              "enhanced_unet_tpu_torch.parallel", "enhanced_unet_tpu_torch.parallel.mesh",
              "enhanced_unet_tpu_torch.parallel.data_parallel",
              "enhanced_unet_tpu_torch.parallel.tiled",
-             "enhanced_unet_tpu_torch.parallel.spatial", "enhanced_unet_tpu_torch.ops.bands"):
+             "enhanced_unet_tpu_torch.parallel.spatial",
+             "enhanced_unet_tpu_torch.parallel.tensor_parallel",
+             "enhanced_unet_tpu_torch.parallel.torch_function",
+             "enhanced_unet_tpu_torch.ops.partition"):
     assert name in walked and name in loaded, name
 print("BOUNDARY OK", len(walked))
 """
@@ -169,6 +172,17 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
         train_model("enhanced_unet", data_dir=str(tmp_path),
                     checkpoint_dir=str(tmp_path / "ck"))
     assert not os.path.exists(tmp_path / "ck")
+
+
+def test_make_mesh_2d_raises_without_a_card(monkeypatch, tmp_path):
+    from enhanced_unet_tpu_torch.parallel import make_mesh_2d
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh_2d(1, 1, init_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh_2d(1, 1, device="cuda", init_dir=str(tmp_path))
+    assert os.listdir(tmp_path) == []
 
 
 @pytest.mark.parametrize("mode", ["eval", "train", "predict", "visualize"])

@@ -1062,3 +1062,67 @@ def test_spatial_apply_on_card_at_world_size_1(cuda, tmp_path):
     assert mbconv.LAUNCHES["mbconv_pass1_window"] > k1["mbconv_pass1_window"]
     assert conv_fused.LAUNCHES["conv3x3_bn_act_f32"] > k2["conv3x3_bn_act_f32"]
     assert _rel(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("kind,cin,cout,parts", [
+    ("column", 6, 256, 2),          # the fusion head's entry layer: small-Cin kernel
+    ("column", 256, 256, 2),
+    ("row", 256, 128, 2),           # the fusion head's 256 -> 128, no epilogue
+    ("row", 128, 128, 4),
+])
+def test_conv3x3_on_tensor_parallel_slices_matches_plain(cuda, kind, cin, cout, parts):
+    """K2 on a column slice (the BN folded on the slice's channels) and on a
+    row slice (scale 1, shift 0, no ReLU) against its plain version; the
+    row slices' partial sums, added in fp32, then BN and ReLU, make the
+    whole layer's."""
+    import torch.nn as nn
+
+    from enhanced_unet_tpu_torch.models import init_random_weights_
+    from enhanced_unet_tpu_torch.models.blocks import ConvBNAct, packed_conv3x3
+    from enhanced_unet_tpu_torch.ops.kernels import conv_fused
+
+    dt = torch.bfloat16
+    layer = init_random_weights_(ConvBNAct(cin, cout, dtype=dt), 4).eval().to(cuda)
+    conv, bn = layer[0], layer[1]
+    g = torch.Generator(device=cuda).manual_seed(10)
+    x = torch.randn(2, 40, 48, cin, generator=g, device=cuda).to(dt)
+    full = cout if kind == "column" else cin
+    outs = []
+    for r in range(parts):
+        lo, hi = r * full // parts, (r + 1) * full // parts
+        part = nn.Conv2d(1, 1, 3, padding=1, bias=False).to(cuda)
+        w = conv.weight[lo:hi] if kind == "column" else conv.weight[:, lo:hi]
+        part.weight = nn.Parameter(w.detach().clone())
+        before = dict(conv_fused.LAUNCHES)
+        with torch.no_grad():
+            if kind == "column":
+                packed = packed_conv3x3(part, bn, dt, cuda, (lo, hi))
+                y = conv_fused.fused_conv3x3_bn_relu_packed(x, packed, relu=True)
+                scale, shift = conv_fused.fold_bn_params(
+                    bn.weight[lo:hi], bn.bias[lo:hi], bn.running_mean[lo:hi],
+                    bn.running_var[lo:hi], bn.eps)
+                want = conv_fused.fused_conv3x3_bn_relu_plain(
+                    x, part.weight.permute(2, 3, 1, 0), scale, shift, True)
+            else:
+                xr = x[..., lo:hi].contiguous()
+                packed = packed_conv3x3(part, bn, dt, cuda, epilogue=False)
+                y = conv_fused.fused_conv3x3_bn_relu_packed(xr, packed, relu=False)
+                ones = torch.ones(cout, device=cuda)
+                want = conv_fused.fused_conv3x3_bn_relu_plain(
+                    xr, part.weight.permute(2, 3, 1, 0), ones, ones * 0, False)
+        torch.cuda.synchronize()
+        launched = {k for k, v in conv_fused.LAUNCHES.items() if v != before[k]}
+        assert launched == {f"conv3x3_bn_act_{packed.variant}"}
+        assert packed.variant == ("smallc" if cin <= 7 else "wgmma")
+        assert _rel(y, want) <= _tol(dt)
+        outs.append(y)
+    with torch.no_grad():
+        scale, shift = conv_fused.fold_bn_params(bn.weight, bn.bias, bn.running_mean,
+                                                 bn.running_var, bn.eps)
+        whole = conv_fused.fused_conv3x3_bn_relu_plain(x, conv.weight.permute(2, 3, 1, 0),
+                                                       scale, shift, True)
+        if kind == "column":
+            got = torch.cat(outs, 3)
+        else:
+            got = torch.relu(sum(o.float() for o in outs) * scale + shift).to(dt)
+    assert _rel(got, whole) <= _tol(dt)

@@ -18,6 +18,10 @@ flax tree `jax.eval_shape` gives and carried by
   with `fusion_stride=2` against the port's own unsharded forward (1e-5 of
   max |logit|); a `unet_basic` input whose bands do not halve raises
   `ValueError` on the ranks;
+- at 8 ranks, JAX's own spatial test shape (`tests/test_spatial.py:106-127`,
+  there with b0 encoders): the flagship with efficientnet-tiny encoders on
+  one 64^2 image against JAX's `make_spatial_apply` on `make_mesh(8)`
+  (2e-4; its stride-8 maps are one row a band);
 - K1's windowed pass 1 and the block on haloed bands (plain versions): the
   bands' sums add up to the whole map's, and the bands' rows of the block
   are the whole map's (fp32 1e-5);
@@ -43,7 +47,7 @@ import torch.nn.functional as F
 from jax import shard_map
 from jax.sharding import PartitionSpec as P
 
-from spatial_ranks import JOIN, halo_rank, port_model, spatial_rank
+from spatial_ranks import JOIN, apply_rank, halo_rank, port_model, spatial_rank
 
 from enhanced_unet_tpu.models import get_model as jget_model
 from enhanced_unet_tpu.models.unet import BasicUNet as JBasicUNet
@@ -205,6 +209,35 @@ def test_bands_that_do_not_halve_raise_on_every_rank(run):
     for r in range(RANKS):
         assert ranks[r]["no_split"] is not None
         assert "does not split bands of 3 rows" in ranks[r]["no_split"]
+
+
+# ---- the flagship at 8 ranks, JAX's own spatial test shape ---------------------
+
+@pytest.fixture(scope="module")
+def run8(tmp_path_factory):
+    """The port's 8 ranks' whole logits and JAX's."""
+    tmp = str(tmp_path_factory.mktemp("spatial8"))
+    jmodel = jget_model("enhanced_unet", dtype=jnp.float32, encoder_names=TINY)
+    v = jax_variables(jmodel, (64, 64), 8)
+    x = np.random.default_rng(8).random((1, 64, 64, 3)).astype(np.float32)
+    want = np.asarray(jspatial.make_spatial_apply(jmodel, jmake_mesh(8, axis_name="space"),
+                                                  "space")(v, jnp.asarray(x)))
+    sd = state_dict_from_jax(v["params"], v["batch_stats"], variants=TINY)
+    path = os.path.join(tmp, "inputs.pt")
+    torch.save({"flagship": ("enhanced_unet", sd, {"encoder_names": TINY},
+                             torch.from_numpy(x))}, path)
+    spawn(apply_rank, 8, (path, tmp), device="cpu", init_dir=tmp, timeout=JOIN)
+    return [torch.load(os.path.join(tmp, f"out{r}.pt"))["flagship"] for r in range(8)], want
+
+
+def test_spatial_apply_flagship_8_ranks_matches_jax(run8):
+    ranks, want = run8
+    np.testing.assert_allclose(ranks[0].numpy(), want, rtol=2e-4, atol=2e-4)
+
+
+def test_spatial_apply_flagship_8_ranks_gather_the_same(run8):
+    ranks, _ = run8
+    assert all(torch.equal(r, ranks[0]) for r in ranks[1:])
 
 
 # ---- K1 on haloed bands (plain versions) ------------------------------------

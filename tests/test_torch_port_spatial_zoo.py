@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from spatial_ranks import JOIN, zoo_rank
+from spatial_ranks import JOIN, apply_rank
 from test_torch_port_spatial import close, jax_variables
 
 from enhanced_unet_tpu.models import get_model as jget_model
@@ -47,11 +47,11 @@ def run(tmp_path_factory):
         x = rng.random((1, *hw, 3)).astype(np.float32)
         want[name] = np.asarray(jax.jit(lambda v, x: jmodel.apply(v, x, False)[0])(
             v, jnp.asarray(x)))
-        inputs[name] = (state_dict_from_jax(v["params"], v.get("batch_stats", {}),
-                                            model_name=name), torch.from_numpy(x))
+        inputs[name] = (name, state_dict_from_jax(v["params"], v.get("batch_stats", {}),
+                                                  model_name=name), {}, torch.from_numpy(x))
     path = os.path.join(tmp, "inputs.pt")
     torch.save(inputs, path)
-    spawn(zoo_rank, RANKS, (path, tmp), device="cpu", init_dir=tmp, timeout=JOIN)
+    spawn(apply_rank, RANKS, (path, tmp), device="cpu", init_dir=tmp, timeout=JOIN)
     return [torch.load(os.path.join(tmp, f"out{r}.pt")) for r in range(RANKS)], want
 
 
