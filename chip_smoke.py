@@ -260,12 +260,48 @@ Phases (any failure exits non-zero):
     beside it and the bound; and what the row split's bf16 partial sums
     cost in error at the widest row-split shape: the path's result and K2's
     fused epilogue, each against conv + BN + ReLU in fp32;
+9e. tensor parallelism's train step and the Evaluator's mesh, inside phase
+    7's temporary directory: (a) `make_tp_train_step` on the flagship at
+    full width (phase 6a's weights and dtype, the preset's dropout and
+    stochastic depth), a seeded global batch of 2 x 512^2 blob micrographs,
+    `min_channels` 128, three steps a grid from a generator seeded alike,
+    every count set to 0 before each step, on the grids 1 x 1 (NCCL), 1 x 2
+    and 2 x 1 (two spawned ranks sharing the card over gloo): each step's
+    loss, global gradient norm and wall ms (the first, then warm), each
+    rank's peak and its parameter and AdamW-moment bytes beside the one
+    process's, the collectives a step by kind; the first loss within 1e-2
+    of one step of the one-process `make_train_step` at the same weights
+    and seed (its gradient norm beside), every rank reporting the same
+    losses, no K1 or K2 launch and no plain version (train mode is stock),
+    every split weight and its moments at width / n_model (271 of them on
+    1 x 2) and, after the third step, every whole parameter, its moments and
+    every running statistic equal across the ranks; beside them the same
+    one-process step in fp32 (how far bf16 alone moves the loss and the
+    norm); the gradients in float64 against one process's float64 step:
+    the 1 x 1 grid at the batch, the two-rank grids at 2 x 128^2, and the
+    efficientnet-tiny flagship (2 x 64^2, split at `min_channels` 16) on the
+    two-rank grids, each the loss within 1e-6 and the gradient tree within
+    1e-5 (relative L2); and how far the gradient trees of one step are
+    apart in bf16 and fp32, however reduced: the one process's and the 1 x 1
+    grid's from each other and from the float64 step, at the batch and at 8
+    x 256^2, with the furthest parameters; (b) `Evaluator(tiled=
+    True, tile 512, overlap 64, TTA, mesh=...)` on a seeded 2048^2
+    micrograph (phase 4's weights) at world size 1 (NCCL) and on the two
+    ranks: `predict_probs_tiled` within 5e-2 of the max probability of one
+    process's (no mesh) and `predict_semantic_mask` (the host-stitched
+    path) with each pixel's class the same as one process's on 0.9999 of
+    pixels, each request's wall ms (first, warm), each rank's tile shares,
+    K1's `nhwc` and K2's wgmma/small-Cin kernels launched with no plain
+    version; K2 at each shape the two-rank chunks gave it that phase 4b did
+    not hold, and K1 at each of their shapes, checked and timed as in 9d (c);
 10. a `{"kernels": [...]}` line, each entry's launches counted in the run
     whose time and shape it reports (the serving kernels' also per tiled
     request, `tiled_launches`; K2's also per zoo request, `zoo_launches`;
     the serving kernels' per tensor-parallel call on the 1 x 2 grid,
-    `tp_launches`, with K2's and K1's rows at 9d's shapes, `tp_shapes`), the
-    card line, and the final JSON line.
+    `tp_launches`, with K2's and K1's rows at 9d's shapes, `tp_shapes`; and
+    per mesh-served tiled request of one of two ranks, `mesh_launches`,
+    with their rows at its chunk's shapes, `mesh_shapes`), the card line,
+    and the final JSON line.
 
 It needs no network and builds into `build/kernels/`.
 """
@@ -2636,7 +2672,8 @@ def tp_partial_sums(dev, shape, mesh_size: int) -> dict:
     return out
 
 
-def tp_k1_rows(dev, k1_calls: dict, k1_weights: dict) -> list:
+def tp_k1_rows(dev, k1_calls: dict, k1_weights: dict,
+               what: str = "tensor parallel, whole weights") -> list:
     """9d (c): K1 at each shape the 1 x 2 call gave it (`k1_calls`: (input
     shape, Cout, residual, channels_last) -> launches a call), with the
     block's own folded weights from that call (`k1_weights`, on the host),
@@ -2711,7 +2748,7 @@ def tp_k1_rows(dev, k1_calls: dict, k1_weights: dict) -> list:
                        wall_ms=device_ms(kernel, K1_ITERS, held=False),
                        plain_ms=device_ms(plain, K1_ITERS),
                        bound_ms=b, bound_by=by, library_ms=None)
-            print(f"K1 {row['name']} {shape} (tensor parallel, whole weights, {count} a call): "
+            print(f"K1 {row['name']} {shape} ({what}, {count} a call): "
                   f"rel err {r:.3e} (tol {1e-3 if q == 'pass1' else tol:g}; the entry "
                   f"{rel:.3e}, tol {tol:g}); kernel {row['ms']:.4f} ms (unheld "
                   f"{row['wall_ms']:.4f}), plain {row['plain_ms']:.4f}, bound {b:.4f} ({by})")
@@ -2722,6 +2759,600 @@ def tp_k1_rows(dev, k1_calls: dict, k1_weights: dict) -> list:
         del x, xk, wpp, p
     check(rows, "K1 held at the tensor-parallel call's shapes")
     return rows
+
+
+TPT_HW, TPT_BATCH, TPT_STEPS = 512, 2, 3   # phase 9e (a): the global batch, steps a grid
+TPT_SEED = 41                              # the dropout and stochastic-depth generator's
+TPT_LOSS_TOL = 1e-2                        # the first loss against the one process's
+TPT_GRIDS = ((1, 2), (2, 1))               # 9e (a) on two ranks sharing the card
+TPT_EXACT_HW = 128                         # 9e (a): the two-rank grids' float64 step
+TPT_WIDE = (8, 256)                        # 9e (a): fp32 against float64 at batch 8
+TPT_EXACT_TOL = 1e-5                       # float64 gradient trees' relative L2
+MESH_TOL, MESH_AGREE = 5e-2, 0.9999        # 9e (b): of the max probability; pixels
+MESH_CALLS = 2                             # 9e (b): served requests a run (first, warm)
+
+
+def recording_norms(state, norms: list, first=None) -> None:
+    """Have `state.tx.update` append the global gradient norm it clips by
+    (the one it is given, or the one it computes) to `norms`, and to the
+    list `first`, if given, the first update's gradients before the clip
+    (fp32, on the host)."""
+    import torch
+
+    real = state.tx.update
+
+    def update(params, grads, opt_state, norm=None):
+        used = norm
+        if used is None:
+            g = [v for v in grads.values() if v is not None]
+            used = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+        norms.append(float(used))
+        if first is not None and not first:
+            first.append({n: v.float().cpu() for n, v in grads.items() if v is not None})
+        return real(params, grads, opt_state, norm=norm)
+
+    state.tx.update = update
+
+
+def tpt_reference(dev, batch, dtype=None) -> dict:
+    """9e (a): one step of the one-process `make_train_step` on the whole
+    batch from phase 6a's weights (the flagship at full width, bf16
+    compute unless `dtype` says otherwise, the preset's dropout and
+    stochastic depth), the generator seeded `TPT_SEED`: loss, the global
+    gradient norm, wall ms, peak and the parameter and AdamW-moment
+    bytes."""
+    import torch
+
+    from enhanced_unet_tpu_torch.config import get_preset
+    from enhanced_unet_tpu_torch.models import get_model
+    from enhanced_unet_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    cfg = get_preset("enhanced_unet")
+    model = get_model("enhanced_unet", seed=0, device=dev,
+                      **({} if dtype is None else {"dtype": dtype}))
+    state = create_train_state(model, cfg, STEPS_PER_EPOCH, device=dev)
+    norms, grads = [], []
+    recording_norms(state, norms, grads)
+    images, masks, valid = (t.to(dev) for t in batch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    state, out = make_train_step(cfg)(state, images, masks, valid,
+                                      torch.Generator(device=dev).manual_seed(TPT_SEED))
+    loss = out["loss"].item()
+    ms = 1e3 * (time.perf_counter() - t0)
+    opt = state.opt_state
+    return {"loss": loss, "norm": norms[0], "ms": ms, "grads": grads[0],
+            "peak": torch.cuda.max_memory_allocated(dev),
+            "param_bytes": sum(p.numel() * p.element_size() for p in model.parameters()),
+            "moment_bytes": sum(t.numel() * t.element_size()
+                                for t in [*opt.mu.values(), *opt.nu.values()])}
+
+
+POOL_BN = "deeplab.decoder.aspp.0.convs.4.2"   # the ASPP image-level branch's BatchNorm
+
+
+def tpt_grads(dev, batch, dtype, mesh2=None, tiny: bool = False,
+              pool_bn_eval: bool = False) -> dict:
+    """9e (a): one step of the flagship in `dtype` (float64 casts its
+    parameters too), the preset's dropout and stochastic depth, a generator
+    seeded `TPT_SEED`: at full width from phase 6a's weights, or with `tiny`
+    the efficientnet-tiny flagship (seed 4).  `make_train_step` on the whole
+    batch without `mesh2`, else `make_tp_train_step` on this rank's rows
+    with its weights split by `shard_params_tp` (at `TP_MIN_CHANNELS`, tiny
+    at 16).  `pool_bn_eval` keeps `POOL_BN` in eval mode (its running
+    statistics) through the step.  Returns the loss and each parameter's
+    gradient before the clip on the host in float64 with its `Split`
+    (None: whole)."""
+    import torch
+
+    from enhanced_unet_tpu_torch.config import get_preset
+    from enhanced_unet_tpu_torch.models import get_model
+    from enhanced_unet_tpu_torch.ops.partition import split_of
+    from enhanced_unet_tpu_torch.parallel import make_tp_train_step, shard_params_tp
+    from enhanced_unet_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    cfg = get_preset("enhanced_unet")
+    model = get_model("enhanced_unet", dtype=dtype, device=dev, seed=4 if tiny else 0,
+                      **({"encoder_names": TINY} if tiny else {}))
+    if dtype == torch.float64:
+        model = model.to(dtype)
+    if pool_bn_eval:
+        bn = model.get_submodule(POOL_BN)
+        bn.training = False
+        bn.train = lambda mode=True: bn          # the step's model.train() passes it by
+    images, masks, valid = batch
+    if mesh2 is None:
+        step = make_train_step(cfg)
+    else:
+        shard_params_tp(model, mesh2, 16 if tiny else TP_MIN_CHANNELS)
+        step = make_tp_train_step(cfg, mesh2)
+        rows = images.shape[0] // mesh2.shape[0]
+        images, masks, valid = (t[mesh2.data.rank * rows:(mesh2.data.rank + 1) * rows]
+                                for t in batch)
+    state = create_train_state(model, cfg, STEPS_PER_EPOCH, device=dev)
+    _, out = step(state, images.to(dev, dtype), masks.to(dev), valid.to(dev),
+                  torch.Generator(device=dev).manual_seed(TPT_SEED))
+    grads = {n: (p.grad.double().cpu(), split_of(p)) for n, p in model.named_parameters()
+             if p.grad is not None}
+    loss = out["loss"].item()
+    del model, state, out
+    torch.cuda.empty_cache()
+    return {"loss": loss, "grads": grads}
+
+
+def whole_grads(ranks: list) -> dict:
+    """The gradient tree from each rank's `tpt_grads`: a split weight's
+    slices concatenated along its split dimension (the two ranks of a
+    1 x 2 grid), a whole one rank 0's."""
+    import torch
+
+    out = {}
+    for n, (g, split) in ranks[0]["grads"].items():
+        out[n] = g if split is None or split.hi - split.lo == split.full else torch.cat(
+            [rank["grads"][n][0] for rank in ranks], split.dim)
+    return out
+
+
+def tree_groups(ours: dict, ref: dict) -> dict:
+    """The flagship's gradient tree in parts (the UNet++ branch, the
+    DeepLabV3+ encoder, the ASPP image-level branch, the rest of its
+    decoder and head, the fusion heads): each part's relative L2 distance
+    from `ref`'s and the two parts' norms."""
+    def part(n):
+        if n.startswith(POOL_BN.rsplit(".", 1)[0] + "."):
+            return "aspp_pool"
+        if n.startswith("deeplab.encoder."):
+            return "deeplab.encoder"
+        return n.split(".")[0] if n.startswith(("unetpp.", "deeplab.")) else "fusion"
+
+    sums = {}
+    for n, v in ref.items():
+        d = sums.setdefault(part(n), [0.0, 0.0, 0.0])
+        d[0] += ((ours[n] - v) ** 2).sum().item()
+        d[1] += (ours[n] ** 2).sum().item()
+        d[2] += (v ** 2).sum().item()
+    return {k: {"rel": (d / max(r, 1e-300)) ** 0.5, "norm": o ** 0.5, "ref_norm": r ** 0.5}
+            for k, (d, o, r) in sums.items()}
+
+
+def worst_leaves(ours: dict, ref: dict, k: int = 3) -> str:
+    """The `k` parameters whose gradients are furthest from `ref`'s, each
+    with its relative L2 distance and its share of the tree's squared
+    difference."""
+    diff = {n: ((ours[n] - v) ** 2).sum().item() for n, v in ref.items()}
+    total = max(sum(diff.values()), 1e-300)
+    return ", ".join(
+        f"{n} {(d / max((ref[n] ** 2).sum().item(), 1e-300)) ** 0.5:.3e} ({d / total:.2f})"
+        for n, d in sorted(diff.items(), key=lambda t: -t[1])[:k])
+
+
+def tpt_runs(mesh2, batch, keep_grads: bool = False) -> dict:
+    """9e (a): `make_tp_train_step` on the grid `mesh2`, phase 6a's weights
+    sharded by `shard_params_tp` at `TP_MIN_CHANNELS`, this rank's rows of
+    the whole batch, `TPT_STEPS` steps from a generator seeded `TPT_SEED`,
+    every count set to 0 before each: each step's loss, global gradient
+    norm and wall ms, this rank's peak, parameter and AdamW-moment bytes,
+    the last step's collectives by kind (`COUNTS`), K1's and K2's launches
+    and their plain versions' calls, the split weights' and their moments'
+    widths, and, where the grid has two ranks, how far each whole
+    parameter, its moments and every running statistic are from rank 0's
+    (max |diff| after the last step); with `keep_grads`, the first step's
+    gradients before the clip (fp32, on the host)."""
+    import torch
+
+    from enhanced_unet_tpu_torch.config import get_preset
+    from enhanced_unet_tpu_torch.models import get_model
+    from enhanced_unet_tpu_torch.ops.kernels import conv_fused, depthwise, mbconv
+    from enhanced_unet_tpu_torch.ops.partition import split_of
+    from enhanced_unet_tpu_torch.parallel import make_tp_train_step, shard_params_tp
+    from enhanced_unet_tpu_torch.parallel import tensor_parallel as tp
+    from enhanced_unet_tpu_torch.train.trainer import create_train_state
+
+    dev = mesh2.device
+    cfg = get_preset("enhanced_unet")
+    counters = (conv_fused.LAUNCHES, mbconv.LAUNCHES, depthwise.LAUNCHES, tp.COUNTS)
+    model = shard_params_tp(get_model("enhanced_unet", seed=0, device=dev), mesh2,
+                            TP_MIN_CHANNELS)
+    state = create_train_state(model, cfg, STEPS_PER_EPOCH, device=dev)
+    norms, grads = [], []
+    recording_norms(state, norms, grads if keep_grads else None)
+    rows = TPT_BATCH // mesh2.shape[0]
+    lo = mesh2.data.rank * rows
+    images, masks, valid = (t[lo:lo + rows].to(dev) for t in batch)
+    step = make_tp_train_step(cfg, mesh2)
+    gen = torch.Generator(device=dev).manual_seed(TPT_SEED)
+    plain, restore = count_plain()
+    losses, ms = [], []
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for _ in range(TPT_STEPS):
+            reset(counters)
+            plain.update(conv3x3_bn_act=0, mbconv=0)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            state, out = step(state, images, masks, valid, gen)
+            losses.append(out["loss"].item())
+            torch.cuda.synchronize(dev)
+            ms.append(1e3 * (time.perf_counter() - t0))
+    finally:
+        restore()
+    params = dict(model.named_parameters())
+    opt = state.opt_state
+    splits = {n: split_of(p) for n, p in params.items() if split_of(p) is not None}
+    halves = all((s.hi - s.lo) * mesh2.shape[1] == s.full
+                 and params[n].shape[s.dim] == s.hi - s.lo
+                 and opt.mu[n].shape == params[n].shape == opt.nu[n].shape
+                 for n, s in splits.items())
+    apart = None
+    if mesh2.world.size > 1:
+        whole = [t for n, p in params.items() if n not in splits
+                 for t in (p.detach(), opt.mu[n], opt.nu[n])]
+        whole += [b for n, b in model.named_buffers() if n.endswith(("running_mean",
+                                                                      "running_var"))]
+        mine = torch.cat([t.reshape(-1).double() for t in whole]).cpu()
+        first = mine.clone()
+        mesh2.world.broadcast_([first])
+        apart = (mine - first).abs().max().item()
+    return {"losses": losses, "norms": norms, "ms": ms,
+            "peak": torch.cuda.max_memory_allocated(dev),
+            "param_bytes": sum(p.numel() * p.element_size() for p in params.values()),
+            "moment_bytes": sum(t.numel() * t.element_size()
+                                for t in [*opt.mu.values(), *opt.nu.values()]),
+            "counts": {k: v for k, v in tp.COUNTS.items() if not k.startswith("k")},
+            "launches": sum(v for c in counters[:3] for v in c.values()),
+            "plain": dict(plain), "splits": len(splits), "halves": halves, "apart": apart,
+            **({"grads": grads[0]} if keep_grads else {})}
+
+
+def mesh_eval_runs(mesh, image) -> dict:
+    """9e (b): the full-width flagship (phase 4's weights) served by
+    `Evaluator(tiled=True, tile=TILE, overlap=TILE_OVERLAP, mesh=mesh)` with
+    TTA: `predict_probs_tiled` once, then `predict_semantic_mask`
+    `MESH_CALLS` times, every count set to 0 before each.  Returns the
+    probabilities and the last mask (on the host), each request's wall ms,
+    the tile shares this rank forwarded a request, the last request's
+    launches and plain-version calls, and the K2 and K1 calls it made
+    (`k2_calls`: (input shape + Cout, relu) -> calls; `k1_calls` as in
+    `tp_runs`, with each block's folded weights)."""
+    import torch
+
+    from enhanced_unet_tpu_torch.models import blocks, encoders
+    from enhanced_unet_tpu_torch.ops.kernels import conv_fused, depthwise, mbconv
+    from enhanced_unet_tpu_torch.train.evaluator import Evaluator
+
+    dev = mesh.device
+    counters = (conv_fused.LAUNCHES, mbconv.LAUNCHES, depthwise.LAUNCHES)
+    ev = Evaluator(serving_model(device=dev), "enhanced_unet", tiled=True, tile=TILE,
+                   overlap=TILE_OVERLAP, mesh=mesh, verbose=False)
+    shares = []
+    tile_probs = ev._tile_probs
+    ev._tile_probs = lambda t: shares.append(t.shape[0]) or tile_probs(t)
+    k2_entry, k1_entry = blocks.fused_conv3x3_bn_relu_packed, encoders.mbconv_infer_nchw
+    k2_calls, k1_calls, k1_weights = {}, {}, {}
+
+    def recording_k2(xh, packed, relu=True):
+        key = (tuple(xh.shape) + (packed.cout,), relu)
+        k2_calls[key] = k2_calls.get(key, 0) + 1
+        return k2_entry(xh, packed, relu)
+
+    def recording_k1(xk, p, *, residual, rows=None, reduce=None, hw=None):
+        key = (tuple(xk.shape), p.wproj.shape[1], residual,
+               xk.is_contiguous(memory_format=torch.channels_last))
+        k1_calls[key] = k1_calls.get(key, 0) + 1
+        k1_weights.setdefault(key, p)
+        return k1_entry(xk, p, residual=residual, rows=rows, reduce=reduce, hw=hw)
+
+    plain, restore = count_plain()
+    blocks.fused_conv3x3_bn_relu_packed = recording_k2
+    encoders.mbconv_infer_nchw = recording_k1
+    ms = []
+    try:
+        probs = ev.predict_probs_tiled(image)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for _ in range(MESH_CALLS):
+            reset(counters)
+            plain.update(conv3x3_bn_act=0, mbconv=0)
+            k2_calls.clear()
+            k1_calls.clear()
+            shares.clear()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            mask = ev.predict_semantic_mask(image)
+            torch.cuda.synchronize(dev)
+            ms.append(1e3 * (time.perf_counter() - t0))
+    finally:
+        restore()
+        blocks.fused_conv3x3_bn_relu_packed, encoders.mbconv_infer_nchw = k2_entry, k1_entry
+    weights = {key: {f: None if t is None else t.cpu() for f, t in p._asdict().items()}
+               for key, p in k1_weights.items()}
+    return {"probs": probs, "mask": mask, "ms": ms, "shares": list(shares),
+            "peak": torch.cuda.max_memory_allocated(dev),
+            "launches": {k: v for c in counters for k, v in c.items() if v},
+            "plain": dict(plain), "k2_calls": dict(k2_calls), "k1_calls": dict(k1_calls),
+            "k1_weights": weights}
+
+
+def tpt_two_ranks(mesh, out_dir: str):
+    """9e, one of two ranks sharing the card over gloo: (a) `tpt_grads` of
+    the tiny flagship and of the full-width one at `TPT_EXACT_HW` in
+    float64, and `tpt_runs`, on each grid of `TPT_GRIDS` (both made on the
+    same process group), (b)
+    `mesh_eval_runs` on the two ranks' data axis.  Each rank writes what
+    they return, rank 1 without the probabilities and K1's weights."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from enhanced_unet_tpu_torch.parallel import make_mesh_2d
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch = torch.load(os.path.join(out_dir, "batch.pt"))
+    tiny = torch.load(os.path.join(out_dir, "tiny.pt"))
+    small = torch.load(os.path.join(out_dir, "small.pt"))
+    out = {}
+    for grid in TPT_GRIDS:
+        mesh2 = make_mesh_2d(*grid, device=mesh.device)
+        out["tiny", grid] = tpt_grads(mesh.device, tiny, torch.float64, mesh2, tiny=True)
+        out["exact", grid] = tpt_grads(mesh.device, small, torch.float64, mesh2)
+        out[grid] = tpt_runs(mesh2, batch)
+        torch.cuda.empty_cache()
+    out["mesh"] = mesh_eval_runs(mesh, np.load(os.path.join(out_dir, "micrograph.npy")))
+    if mesh.rank:
+        del out["mesh"]["probs"], out["mesh"]["k1_weights"]
+    torch.save(out, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
+
+
+def phase9e_tp_train_and_mesh_evaluator(card: str, dev, tmp: str, k2_row, covered) -> dict:
+    """9e. Tensor parallelism's train step and the Evaluator's mesh on the
+    card (see the module docstring); `covered`: the (shape, relu) K2 rows of
+    phase 4b.  Returns the readings, and K2's and K1's rows at the tile
+    chunk's shapes on two ranks."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from enhanced_unet_tpu_torch.parallel import make_mesh, make_mesh_2d, spawn
+    from enhanced_unet_tpu_torch.train.evaluator import Evaluator
+
+    t_phase = time.perf_counter()
+    batch = tuple(torch.from_numpy(a) for a in blob_batch(TPT_BATCH, TPT_HW, TPT_HW, 43))
+    tiny = tuple(torch.from_numpy(a) for a in blob_batch(TPT_BATCH, 64, 64, 44))
+    small = tuple(torch.from_numpy(a)
+                  for a in blob_batch(TPT_BATCH, TPT_EXACT_HW, TPT_EXACT_HW, 45))
+    wide = tuple(torch.from_numpy(a) for a in blob_batch(TPT_WIDE[0], TPT_WIDE[1], TPT_WIDE[1], 46))
+    image = synthetic_images(1, TILED_SIZE, 47)[0]
+    f32, f64 = torch.float32, torch.float64
+
+    # ---- (a) the one process's step (and in fp32, the bf16 step's
+    # yardstick), its gradients in float64 (at the batch, at the two-rank
+    # grids' `TPT_EXACT_HW`, the tiny flagship's) and, at batch 8, in fp32
+    # and float64; then the grid 1 x 1 over NCCL, also in fp32 and float64
+    ref = tpt_reference(dev, batch)
+    ref32 = tpt_reference(dev, batch, f32)
+    exact = {"one_process": tpt_grads(dev, batch, f64), "small": tpt_grads(dev, small, f64),
+             "tiny": tpt_grads(dev, tiny, f64, tiny=True),
+             "wide32": tpt_grads(dev, wide, f32), "wide64": tpt_grads(dev, wide, f64),
+             "pool32": tpt_grads(dev, batch, f32, pool_bn_eval=True),
+             "pool64": tpt_grads(dev, batch, f64, pool_bn_eval=True)}
+    os.makedirs(os.path.join(tmp, "tpt1"))
+    mesh2 = make_mesh_2d(1, 1, init_dir=os.path.join(tmp, "tpt1"))
+    try:
+        runs = {(1, 1): tpt_runs(mesh2, batch, keep_grads=True)}
+        torch.cuda.empty_cache()
+        exact["1x1"] = tpt_grads(dev, batch, f64, mesh2)
+        exact["1x1_fp32"] = tpt_grads(dev, batch, f32, mesh2)
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # ---- (b) the one process's tiled serving (no mesh), then world size 1
+    model = serving_model(device=dev)
+    one = Evaluator(model, "enhanced_unet", tiled=True, tile=TILE, overlap=TILE_OVERLAP,
+                    verbose=False)
+    want_probs = one.predict_probs_tiled(image)
+    want_mask = one.predict_semantic_mask(image)
+    del one, model
+    torch.cuda.empty_cache()
+    os.makedirs(os.path.join(tmp, "mesh1"))
+    mesh = make_mesh(1, init_dir=os.path.join(tmp, "mesh1"))
+    try:
+        served = {1: mesh_eval_runs(mesh, image)}
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # ---- (a) 1 x 2 and 2 x 1, (b) two ranks: one spawn sharing the card
+    ranks_dir = os.path.join(tmp, "tpt2")
+    os.makedirs(ranks_dir)
+    torch.save(batch, os.path.join(ranks_dir, "batch.pt"))
+    torch.save(tiny, os.path.join(ranks_dir, "tiny.pt"))
+    torch.save(small, os.path.join(ranks_dir, "small.pt"))
+    np.save(os.path.join(ranks_dir, "micrograph.npy"), image)
+    t0 = time.perf_counter()
+    spawn(tpt_two_ranks, 2, (ranks_dir,), device="cuda:0", backend="gloo", init_dir=ranks_dir,
+          timeout=900)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(ranks_dir, f"rank{q}.pt"), weights_only=False)
+             for q in range(2)]
+    for grid in TPT_GRIDS:
+        runs[grid] = [rank[grid] for rank in ranks]
+    served[2] = ranks[0]["mesh"]
+
+    # the backward at full width.  float64 holds it: the 1 x 1 grid at the
+    # batch, the two-rank grids at `TPT_EXACT_HW` (and the tiny flagship's).
+    # In fp32 and bf16 the gradient trees of one step are far apart however
+    # they are reduced: the fp32 one process's from its float64 one, by
+    # part, at batch 2, at batch 8 and at batch 2 with the ASPP image-level
+    # branch's BatchNorm on its running statistics, says where that comes from
+    def tree(r):
+        return {n: g for n, (g, _) in r["grads"].items()}
+
+    g64, g32 = tree(exact["one_process"]), ref32.pop("grads")
+    ref_grads = ref.pop("grads")
+    noise = {"bf16_from_fp32": tree_rel_l2(ref_grads, g32),
+             "1x1_from_one_process": tree_rel_l2(runs[1, 1].pop("grads"), ref_grads),
+             "fp32_from_fp64": tree_rel_l2(g32, g64),
+             "1x1_fp32_from_fp32": tree_rel_l2(tree(exact["1x1_fp32"]), g32),
+             "1x1_fp32_from_fp64": tree_rel_l2(tree(exact["1x1_fp32"]), g64),
+             "wide_fp32_from_fp64": tree_rel_l2(tree(exact["wide32"]), tree(exact["wide64"])),
+             "pool_bn_eval_fp32_from_fp64": tree_rel_l2(tree(exact["pool32"]),
+                                                        tree(exact["pool64"]))}
+    worst = {"batch 2": worst_leaves(g32, g64),
+             f"batch {TPT_WIDE[0]}": worst_leaves(tree(exact["wide32"]), tree(exact["wide64"])),
+             "pool BN eval": worst_leaves(tree(exact["pool32"]), tree(exact["pool64"]))}
+    parts = {"batch 2": tree_groups(g32, g64),
+             f"batch {TPT_WIDE[0]}": tree_groups(tree(exact["wide32"]), tree(exact["wide64"])),
+             "pool BN eval": tree_groups(tree(exact["pool32"]), tree(exact["pool64"])),
+             "1 x 1 grid, batch 2": tree_groups(tree(exact["1x1_fp32"]), g64)}
+    del ref_grads, g32
+    out = {"card": card, "one_process": ref, "one_process_fp32": ref32, "spawn_s": spawn_s,
+           "gradient_trees": noise, "worst_leaves": worst, "parts": parts}
+    print(f"[{card}] 9e (a) one process, flagship b5/b4 bf16 {TPT_BATCH} x {TPT_HW}^2, "
+          f"dropout and stochastic depth on: first step {ref['ms']:.1f} ms, loss "
+          f"{ref['loss']:.6f}, gradient norm {ref['norm']:.6f}, peak {ref['peak']} bytes, "
+          f"parameters {ref['param_bytes']} bytes, AdamW moments {ref['moment_bytes']} bytes; "
+          f"the same step in fp32 (the bf16 step's yardstick): loss {ref32['loss']:.6f} (rel "
+          f"{abs(ref32['loss'] - ref['loss']) / abs(ref32['loss']):.3e}), gradient norm "
+          f"{ref32['norm']:.6f} (rel {abs(ref32['norm'] - ref['norm']) / ref32['norm']:.3e})")
+    print(f"[{card}] 9e (a) gradient trees' rel L2 before the clip, {TPT_BATCH} x {TPT_HW}^2: "
+          f"the one process's bf16 from its fp32 {noise['bf16_from_fp32']:.3e}, the 1 x 1 grid's "
+          f"bf16 from the one process's {noise['1x1_from_one_process']:.3e}; the one process's "
+          f"fp32 from its float64 {noise['fp32_from_fp64']:.3e}, the 1 x 1 grid's fp32 from the "
+          f"one process's fp32 {noise['1x1_fp32_from_fp32']:.3e} and from its float64 "
+          f"{noise['1x1_fp32_from_fp64']:.3e}; at {TPT_WIDE[0]} x {TPT_WIDE[1]}^2 the one "
+          f"process's fp32 from its float64 {noise['wide_fp32_from_fp64']:.3e}; at the batch "
+          f"with {POOL_BN} on its running statistics {noise['pool_bn_eval_fp32_from_fp64']:.3e}; "
+          f"the furthest leaves (rel L2, share of the squared difference): {json.dumps(worst)}")
+    for case, by_part in parts.items():
+        print(f"[{card}] 9e (a) the fp32 gradient tree from the one process's float64 one by "
+              f"part, {case}: " + "; ".join(
+                  f"{k} rel {v['rel']:.3e} (norms fp32 {v['norm']:.4e}, float64 "
+                  f"{v['ref_norm']:.4e})" for k, v in by_part.items()))
+    # float64: the full-width grids (1 x 1 at the batch, the two-rank ones
+    # at `TPT_EXACT_HW`) and the tiny flagship's two-rank grids against one
+    # process, each split weight's gradient put together from both ranks
+    cases = [("full width", (1, 1), f"{TPT_BATCH} x {TPT_HW}^2", [exact["1x1"]],
+              exact["one_process"])]
+    cases += [("full width", grid, f"{TPT_BATCH} x {TPT_EXACT_HW}^2",
+               [rank["exact", grid] for rank in ranks], exact["small"]) for grid in TPT_GRIDS]
+    cases += [("tiny flagship", grid, f"{TPT_BATCH} x 64^2", [rank["tiny", grid] for rank in ranks],
+               exact["tiny"]) for grid in TPT_GRIDS]
+    for kind, grid, size, got, want in cases:
+        grads, want_grads = whole_grads(got), tree(want)
+        loss_rel = abs(got[0]["loss"] - want["loss"]) / abs(want["loss"])
+        rel = tree_rel_l2(grads, want_grads)
+        print(f"[{card}] TP train step, {kind} float64 {size}, grid {grid[0]} x {grid[1]} "
+              f"({'over NCCL' if grid == (1, 1) else 'two ranks on one card over gloo'}) "
+              f"against one process: loss rel {loss_rel:.3e} (tol 1e-6), gradient tree rel L2 "
+              f"{rel:.3e} (tol {TPT_EXACT_TOL:g})")
+        check(set(grads) == set(want_grads) and loss_rel <= 1e-6 and rel <= TPT_EXACT_TOL,
+              f"{kind} float64 grid {grid}: loss and gradients equal one process's")
+        out[f"{'tiny' if kind.startswith('tiny') else 'exact'}{grid[0]}x{grid[1]}"] = {
+            "loss_rel": loss_rel, "grad_rel": rel}
+    del exact, g64
+    for grid, r in runs.items():
+        rs = r if isinstance(r, list) else [r]
+        what = (f"TP train step, grid {grid[0]} x {grid[1]}"
+                + (" over NCCL" if grid == (1, 1) else ", two ranks on one card over gloo"))
+        loss_rel = abs(rs[0]["losses"][0] - ref["loss"]) / abs(ref["loss"])
+        norm_rel = abs(rs[0]["norms"][0] - ref["norm"]) / ref["norm"]
+        for q, rq in enumerate(rs):
+            print(f"[{card}] {what}, rank {q}: wall ms {[round(t, 1) for t in rq['ms']]} (first, "
+                  f"warm); losses {[round(v, 6) for v in rq['losses']]}; gradient norms "
+                  f"{[round(v, 6) for v in rq['norms']]}; peak {rq['peak']} bytes; parameters "
+                  f"{rq['param_bytes']} bytes, AdamW moments {rq['moment_bytes']} bytes (one "
+                  f"process {ref['param_bytes']}, {ref['moment_bytes']}); {rq['splits']} split "
+                  f"weights; collectives a step {json.dumps(rq['counts'])}; K1/K2 launches "
+                  f"{rq['launches']}, plain-version calls {rq['plain']}; whole tensors from "
+                  f"rank 0's {rq['apart']}")
+            check(all(math.isfinite(v) for v in rq["losses"]), f"{what}: finite losses")
+            check(rq["losses"] == rs[0]["losses"], f"{what}: every rank reports the same loss")
+            check(rq["launches"] == 0 and rq["plain"] == {"conv3x3_bn_act": 0, "mbconv": 0},
+                  f"{what}: no K1 or K2 launch and no plain version (train mode is stock)")
+            check(rq["halves"], f"{what}: every split weight and its moments at width / "
+                                f"{grid[1]}")
+            check(rq["apart"] in (None, 0.0), f"{what}: whole parameters, moments and running "
+                                              "statistics equal across the ranks")
+        print(f"[{card}] {what}: first loss rel diff from the one process's {loss_rel:.3e} "
+              f"(tol {TPT_LOSS_TOL:g}), gradient norm's {norm_rel:.3e}")
+        check(loss_rel <= TPT_LOSS_TOL, f"{what}: first loss within {TPT_LOSS_TOL} of the one "
+                                        "process's")
+        if grid[1] > 1:
+            check(rs[0]["splits"] == 271 and 2 * rs[0]["param_bytes"] < 3 * ref["param_bytes"],
+                  f"{what}: 271 split weights, the parameters under 3/4 of the one process's")
+        out["x".join(map(str, grid))] = [{k: v for k, v in rq.items()} for rq in rs]
+
+    top = float(want_probs.max())
+    for size, r in served.items():
+        what = (f"mesh Evaluator, {TILED_SIZE}^2 tile {TILE} overlap {TILE_OVERLAP} TTA, "
+                + ("world size 1 over NCCL" if size == 1
+                   else "two ranks on one card over gloo, rank 0"))
+        err = float(np.abs(r["probs"] - want_probs).max()) / top
+        agree = float(np.mean(r["mask"] == want_mask))
+        k2 = r["launches"].get("conv3x3_bn_act_wgmma", 0) + r["launches"].get(
+            "conv3x3_bn_act_smallc", 0)
+        k1 = r["launches"].get("mbconv_nhwc_pass1", 0)
+        print(f"[{card}] {what}: wall ms {[round(t, 1) for t in r['ms']]} (first, warm); tile "
+              f"shares {r['shares']} ({sum(r['shares'])} tiles forwarded a request, padding "
+              f"included); peak {r['peak']} bytes; launches {json.dumps(r['launches'])}; "
+              f"plain-version calls {r['plain']}; probabilities max |diff| / max "
+              f"{err:.3e} (tol {MESH_TOL:g}); pixels of the same class {agree:.6f} (tol "
+              f"{MESH_AGREE})")
+        check(r["mask"].shape == want_mask.shape and r["mask"].dtype == np.uint8
+              and set(np.unique(r["mask"]).tolist()) <= {0, 1, 2}, f"{what}: a uint8 mask")
+        check(err <= MESH_TOL, f"{what}: probabilities within {MESH_TOL} of one process's")
+        check(agree >= MESH_AGREE, f"{what}: classes agree on {MESH_AGREE} of pixels")
+        check(k2 > 0 and k1 > 0 and r["launches"].get("mbconv_nhwc_pass2", 0) == k1,
+              f"{what}: K1 and K2 launched")
+        check(r["plain"] == {"conv3x3_bn_act": 0, "mbconv": 0},
+              f"{what}: no plain version of K1 or K2")
+        check(k2 == sum(r["k2_calls"].values()) and k1 == sum(r["k1_calls"].values()),
+              f"{what}: every launch one of the recorded calls")
+        out[f"mesh{size}"] = {k: r[k] for k in ("ms", "shares", "peak", "launches", "plain")}
+        out[f"mesh{size}"].update(err=err, agree=agree)
+    check(len(ranks[1]["mesh"]["shares"]) == len(served[2]["shares"])
+          and ranks[1]["mesh"]["launches"] == served[2]["launches"],
+          "the two ranks forwarded the same shares")
+    print(f"[{card}] 9e two ranks: spawn to join {spawn_s:.1f} s")
+
+    # ---- K2 and K1 at each shape the chunks on two ranks gave them (K2's
+    # that phase 4b did not hold)
+    t0 = time.perf_counter()
+    calls = served[2]["k2_calls"]
+    k2_rows = []
+    for (shape, relu), count in sorted(calls.items()):
+        if (shape, relu) in covered:
+            continue
+        r = k2_row(shape[:5], relu, iters=TP_K2_ITERS)
+        r.update(launches=count, split="whole")
+        print_k2(r, f"mesh Evaluator tile chunk ({count} a request a rank) ")
+        k2_rows.append(r)
+    check(k2_rows and sum(r["launches"] for r in k2_rows)
+          + sum(c for key, c in calls.items() if key in covered) == sum(calls.values()),
+          "K2 held at every shape of the mesh-served request")
+    per_request = {k: sum(r["launches"] * r[k] for r in k2_rows)
+                   for k in ("ms", "wall_ms", "bound_ms", "library_ms", "library_conv_ms",
+                             "plain_ms")}
+    print(f"K2 per mesh-served request a rank (two ranks), its {len(k2_rows)} shapes "
+          f"({sum(r['launches'] for r in k2_rows)} launches; sum of launches x time): kernel "
+          f"{per_request['ms']:.4f} ms (unheld {per_request['wall_ms']:.4f}), bound "
+          f"{per_request['bound_ms']:.4f}, cuDNN + epilogue {per_request['library_ms']:.4f}, "
+          f"cuDNN conv alone {per_request['library_conv_ms']:.4f}, plain "
+          f"{per_request['plain_ms']:.4f}")
+    out["k2_rows"], out["k2_per_request"] = k2_rows, per_request
+    out["k1_rows"] = tp_k1_rows(dev, served[2]["k1_calls"], served[2]["k1_weights"],
+                                what="mesh Evaluator tile chunk")
+    out["mesh_launches"] = served[2]["launches"]
+    print(f"[{card}] phase 9e (TP train step, mesh Evaluator): "
+          f"{time.perf_counter() - t_phase:.1f} s (K1/K2 rows {time.perf_counter() - t0:.1f} s)")
+    return out
 
 
 def main(argv=None) -> int:
@@ -3626,15 +4257,16 @@ def main(argv=None) -> int:
     check(grad64 <= 1e-4, "tiny fp64 gradients within 1e-4 of the cpu")
 
     # ---- 7. the training entry point; 9. the zoo, 9b. the CLI and the
-    # data axis, 9c. spatial partitioning and 9d. tensor parallelism, in its
-    # folder
-    zoo_launches, _, spatial, tensor = phase7_training_entry(
+    # data axis, 9c. spatial partitioning, 9d. tensor parallelism and 9e.
+    # its train step and the mesh Evaluator, in its folder
+    zoo_launches, _, spatial, tensor, mesh = phase7_training_entry(
         card, counters, dev,
         after=lambda tmp, data_dir: (
             phase9_zoo(card, counters, dev, tmp, data_dir, k2_row, set(k2_calls)),
             phase9b_cli_and_data_axis(card, counters, dev, tmp, data_dir),
             phase9c_spatial(card, dev, tmp, k2_row),
-            phase9d_tensor_parallel(card, dev, tmp, k2_row, set(k2_calls))))
+            phase9d_tensor_parallel(card, dev, tmp, k2_row, set(k2_calls)),
+            phase9e_tp_train_and_mesh_evaluator(card, dev, tmp, k2_row, set(k2_calls))))
     results.update(spatial["entries"])
 
     # ---- 10. report ------------------------------------------------------
@@ -3698,6 +4330,12 @@ def main(argv=None) -> int:
                       if f"conv3x3_bn_act_{row['variant']}" == name]
                + [row for row in tensor["k1_rows"] if row["name"] == name]
                for name in tp_kernels}
+    # what the mesh Evaluator's request on two ranks (9e (b), rank 0)
+    # launched of the same kernels, and their rows at its tile chunk's shapes
+    mesh_rows = {name: [row for row in mesh["k2_rows"]
+                        if f"conv3x3_bn_act_{row['variant']}" == name]
+                 + [row for row in mesh["k1_rows"] if row["name"] == name]
+                 for name in tp_kernels}
     kernels = []
     for name, (source, replaces) in meta.items():
         r = results[name]
@@ -3718,6 +4356,12 @@ def main(argv=None) -> int:
                                 "shape", "split", "launches", "max_abs_err", "ms", "plain_ms",
                                 "bound_ms", "bound_by", "library_ms")}
                                 for row in tp_rows[name]]}
+                           if name in tp_kernels else {}),
+                        **({"mesh_launches": mesh["mesh_launches"].get(name, 0),
+                            "mesh_shapes": [{k: row[k] for k in (
+                                "shape", "launches", "max_abs_err", "ms", "plain_ms",
+                                "bound_ms", "bound_by", "library_ms")}
+                                for row in mesh_rows[name]]}
                            if name in tp_kernels else {}),
                         **{k: r[k] for k in ("library_conv_ms", "library_block_ms", "nchw_ms",
                                              "yardstick_ms", "copy_ratio", "bf16_weights_ms")

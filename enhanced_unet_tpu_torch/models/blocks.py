@@ -51,10 +51,15 @@ def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     reduced in fp32 (also for a bf16 x), x is normalised with the biased
     variance, and the running statistics move as `m * running + (1 - m) *
     batch` with flax's momentum m = 1 - `bn.momentum` and the biased variance
-    (torch would update with the unbiased one)."""
+    (torch would update with the unbiased one).  Under tensor parallelism
+    (`ops.partition`) train mode takes the whole batch's statistics over
+    the ranks instead."""
     if not bn.training:
         return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
                             bn.bias, False, 0.0, bn.eps)
+    part = partition.active()        # a batch split over ranks, a channel slice
+    if part is not None:
+        return part.batch_norm(x, bn)
     # momentum 1 writes the batch mean and unbiased variance into the zeros
     mean = torch.zeros_like(bn.running_mean)
     var = torch.zeros_like(bn.running_var)
@@ -70,14 +75,19 @@ def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax's `nn.Dropout` in train mode: each element kept with probability
-    1 - rate (a uniform draw below it) and scaled by 1 / (1 - rate)."""
+    1 - rate (a uniform draw below it) and scaled by 1 / (1 - rate).  Under
+    tensor parallelism (`ops.partition`) a rank keeps its part of the draws
+    over the whole batch."""
     if rate == 0.0:
         return x
     keep = 1.0 - rate
+    generator = need_generator(generator, "dropout")
+    part = partition.active()
     # the draws in x's memory layout, so the select below runs on matching
     # strides (a channels_last x against an NCHW mask takes a slow strided path)
-    mask = torch.empty_like(x, dtype=torch.float32).uniform_(
-        generator=need_generator(generator, "dropout")) < keep
+    u = (torch.empty_like(x, dtype=torch.float32).uniform_(generator=generator)
+         if part is None else part.uniform(x, generator))
+    mask = u < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -223,10 +223,13 @@ def drop_path(y: torch.Tensor, rate: float,
               generator: Optional[torch.Generator]) -> torch.Tensor:
     """Stochastic depth of a residual branch, per sample: the sample's
     branch is kept when `floor(keep + U)` is 1 (U uniform, keep = 1 - rate)
-    and scaled by 1 / keep."""
+    and scaled by 1 / keep.  Under tensor parallelism (`ops.partition`) a
+    rank keeps its samples' part of the draws over the whole batch."""
     keep = 1.0 - rate
-    u = torch.rand((y.shape[0], 1, 1, 1), device=y.device,
-                   generator=need_generator(generator, "stochastic depth"))
+    generator = need_generator(generator, "stochastic depth")
+    part = partition.active()
+    u = (torch.rand((y.shape[0], 1, 1, 1), device=y.device, generator=generator)
+         if part is None else part.uniform(y, generator, per_sample=True))
     return y / keep * torch.floor(keep + u).to(y.dtype)
 
 

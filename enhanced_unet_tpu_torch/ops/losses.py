@@ -34,10 +34,11 @@ def _class_masks(targets: torch.Tensor, num_classes: int):
     return [(tgt == c).float() for c in range(num_classes)]
 
 
-def _focal_cf(logp, masks, alpha, gamma, class_weights, valid):
+def _focal_cf(logp, masks, alpha, gamma, class_weights, valid, focal_norm=None):
     """Class-weighted focal cross-entropy.  The CE is weighted before
     pt = exp(-ce), so pt depends on the class weight, as the reference's
-    `F.cross_entropy(weight=..., reduction='none')` makes it."""
+    `F.cross_entropy(weight=..., reduction='none')` makes it.  `focal_norm`,
+    when given, divides the valid pixels' sum in place of their count."""
     c = logp.shape[1]
     nll = sum(-logp[:, i] * masks[i] for i in range(c))
     wmap = sum(class_weights[i] * masks[i] for i in range(c))
@@ -46,7 +47,8 @@ def _focal_cf(logp, masks, alpha, gamma, class_weights, valid):
     focal = amap * (1.0 - torch.exp(-ce)) ** gamma * ce
     if valid is None:
         return focal.mean()
-    return (focal * valid).sum() / valid.sum().clamp_min(1.0)
+    norm = valid.sum().clamp_min(1.0) if focal_norm is None else focal_norm
+    return (focal * valid).sum() / norm
 
 
 def _overlap_terms_cf(probs, masks, valid):
@@ -109,12 +111,12 @@ def tversky_loss(logits: torch.Tensor, targets: torch.Tensor,
     return _tversky_from_terms(*terms, class_weights, alpha, eps)
 
 
-def _combined_loss_cf(lcf, targets, cfg: LossConfig, valid_mask):
+def _combined_loss_cf(lcf, targets, cfg: LossConfig, valid_mask, focal_norm=None):
     masks = _class_masks(targets, lcf.shape[1])
     valid = _flat(valid_mask)
     logp = torch.log_softmax(lcf, 1)
     f = _focal_cf(logp, masks, cfg.focal_alpha, cfg.focal_gamma,
-                  cfg.ce_class_weights, valid)
+                  cfg.ce_class_weights, valid, focal_norm)
     tp, fp, fn = _overlap_terms_cf(torch.exp(logp), masks, valid)
     d = _dice_from_terms(tp, fp, fn, cfg.dice_class_weights, cfg.eps)
     t = _tversky_from_terms(tp, fp, fn, cfg.tversky_class_weights,
@@ -131,21 +133,25 @@ def combined_loss(logits: torch.Tensor, targets: torch.Tensor, cfg: LossConfig,
 
 def combined_loss_with_aux(logits: torch.Tensor, aux_logits: Dict[str, torch.Tensor],
                            targets: torch.Tensor, cfg: LossConfig,
-                           valid_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                           valid_mask: Optional[torch.Tensor] = None,
+                           focal_norm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The combined loss on the fused logits, plus, for each aux branch of
     `cfg.aux_branch_weights` present in `aux_logits` (at the targets'
     resolution), its weighted combined loss and the weighted consistency
     term: the mean over all elements, padded pixels included, of the squared
-    difference between the branch's and the fused softmax."""
+    difference between the branch's and the fused softmax.  `focal_norm`
+    (with `valid_mask`) divides each focal term's sum over the valid pixels
+    in place of their count: a shard of a batch split over ranks passes the
+    whole batch's count over the number of shards."""
     lcf = _to_cf(logits)
-    total = _combined_loss_cf(lcf, targets, cfg, valid_mask)
+    total = _combined_loss_cf(lcf, targets, cfg, valid_mask, focal_norm)
     fused_probs = torch.softmax(lcf, 1) if cfg.consistency_weight > 0 else None
     for name, weight in cfg.aux_branch_weights:
         branch = aux_logits.get(name)
         if branch is None:
             continue
         bcf = _to_cf(branch)
-        total = total + weight * _combined_loss_cf(bcf, targets, cfg, valid_mask)
+        total = total + weight * _combined_loss_cf(bcf, targets, cfg, valid_mask, focal_norm)
         if fused_probs is not None:
             consistency = ((torch.softmax(bcf, 1) - fused_probs) ** 2).mean()
             total = total + weight * cfg.consistency_weight * consistency

@@ -19,6 +19,17 @@ hand their kernel call to it:
 
 `own`, where a mode passes one, is the `Own` of a band haloed by its
 neighbours' rows (spatial partitioning).
+
+Tensor parallelism also trains (spatial partitioning refuses train mode):
+there `models.blocks.batch_norm`, `dropout` and `models.encoders.drop_path`
+ask `active()` too, and hand it
+
+- `batch_norm(x, bn)`: `bn`'s train-mode BatchNorm of x with the
+  statistics of the whole batch (the batch split over ranks, x perhaps a
+  channel slice);
+- `uniform(x, generator, per_sample=False)`: fp32 uniforms for x (one a
+  sample, `[N, 1, 1, 1]`, with `per_sample`): this rank's part of the
+  draws over the whole batch.
 """
 
 from __future__ import annotations

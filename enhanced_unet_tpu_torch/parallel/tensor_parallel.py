@@ -1,7 +1,6 @@
-"""Tensor parallelism's forward, ported from
+"""Tensor parallelism, ported from
 `enhanced_unet_tpu/parallel/tensor_parallel.py` (`make_mesh_2d`,
-`tp_param_specs`, `shard_params_tp`, `make_tp_apply`; the train step is not
-ported yet).
+`tp_param_specs`, `shard_params_tp`, `make_tp_apply`, `make_tp_train_step`).
 
 The JAX package lays its devices out on a 2-D `Mesh(('data', 'model'))`,
 annotates the wide conv kernels with a channel sharding and lets XLA derive
@@ -34,7 +33,8 @@ written out (Megatron's pattern):
 - every other operation that meets a slice all-gathers it first over the
   model axis, once per slice (a skip read twice is gathered once): always
   right.  An in-place operation on a slice that no rule keeps local
-  raises, as does any operation on a split weight but a cast.
+  raises, as does any operation on a split weight but a cast, and BN in
+  train mode called other than through `models.blocks.batch_norm`.
 
 So a column-split conv whose output reaches a row-split conv through
 channel-local operations costs one all-reduce and no all-gather (a
@@ -43,7 +43,27 @@ cannot see, ask it through `ops.partition`: K2 runs on a column slice with
 the BN folded on the same slice, and on a row slice with scale 1, shift 0
 and no ReLU, then the sum, then BN and ReLU; a K1 block with a split
 weight gathers its weights whole for the call, their storage staying
-sharded.  `COUNTS` counts the collectives and K2's calls by kind.
+sharded.
+
+The train step (`make_tp_train_step`) is the JAX step's one program over
+the whole batch, spelled out rank by rank.  Every collective of the
+forward is an autograd function with its backward (Megatron's f and g):
+an all-gather's is this rank's slice of the gradient; a whole tensor that
+rank-specific work consumes (a column split's input, an operand broadcast
+against a slice) has its gradient summed over the model axis; a row
+split's all-reduce passes its gradient on unchanged; a whole tensor cut to
+a slice (an input, a bias, a BN weight) gets the slices' gradients
+all-gathered, so that a replicated parameter's gradient is whole and equal
+on every rank and counted once.  BatchNorm takes the whole batch's
+statistics (each rank's per-channel count, mean and squared deviations
+all-gathered over the data axis and combined; the backward all-reduces)
+and the running statistics of a slice are all-gathered after the forward;
+dropout and stochastic depth draw over the whole batch and keep this
+rank's part; the loss is the whole batch's; the gradients are summed over
+the data axis, the whole parameters' broadcast from model rank 0 (a card's
+kernels may round differently on each replica), and all clipped by their
+global norm (a split weight's shards counted once).  `COUNTS` counts the
+collectives and K2's calls by kind.
 """
 
 from __future__ import annotations
@@ -58,8 +78,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.overrides import TorchFunctionMode
 
+from enhanced_unet_tpu_torch.config import TrainConfig
 from enhanced_unet_tpu_torch.models.blocks import packed_conv3x3
 from enhanced_unet_tpu_torch.ops import partition
+from enhanced_unet_tpu_torch.ops.losses import combined_loss_with_aux
 from enhanced_unet_tpu_torch.ops.partition import Split, split_of
 from enhanced_unet_tpu_torch.ops.kernels.conv_fused import fold_bn_params
 from enhanced_unet_tpu_torch.parallel.mesh import (
@@ -69,6 +91,7 @@ from enhanced_unet_tpu_torch.parallel.mesh import (
     all_sum_,
     gather,
     make_mesh,
+    wire,
 )
 from enhanced_unet_tpu_torch.parallel.torch_function import (
     call_args,
@@ -76,13 +99,19 @@ from enhanced_unet_tpu_torch.parallel.torch_function import (
     replace_tensors,
     tensors_of,
 )
+from enhanced_unet_tpu_torch.train.trainer import TrainState
 
-# what a tensor-parallel forward did, counted from 0 by whoever reads it:
-# collectives over the model axis (a weight gathered whole for K1
-# included), K2's calls on whole weights, column and row slices, and K1's
+# what a tensor-parallel forward or train step did, counted from 0 by
+# whoever reads it: collectives over the model axis in the forward and the
+# step (a weight gathered whole for K1, the running statistics' gather, the
+# replicas' broadcast and the gradient norm's all-reduce included), those of
+# the backward, those over the data axis (BatchNorm's statistics gathered in
+# the forward and reduced in the backward, the loss's counts, the
+# gradients), K2's calls on whole weights, column and row slices, and K1's
 # calls with weights gathered whole
-COUNTS = {"all_gather": 0, "all_reduce": 0, "k2_whole": 0, "k2_column": 0, "k2_row": 0,
-          "k1_gathered": 0}
+COUNTS = {"all_gather": 0, "all_reduce": 0, "broadcast": 0, "grad_all_gather": 0,
+          "grad_all_reduce": 0, "data_all_gather": 0, "data_all_reduce": 0, "k2_whole": 0,
+          "k2_column": 0, "k2_row": 0, "k1_gathered": 0}
 
 
 # ---- the grid ---------------------------------------------------------------
@@ -209,7 +238,8 @@ def make_tp_apply(model: nn.Module, mesh: Mesh2D) -> Callable[[torch.Tensor], to
     `shard_params_tp` left them; equal to the unsharded `model(x_local)[0]`.
     The ranks of one row of the grid get the same rows of the batch.  Raises
     `ValueError` in train mode, and `RuntimeError` where grad mode is on and
-    a parameter requires grad (the backward is not ported yet)."""
+    a parameter requires grad (eval mode runs K2 and K1, which have no
+    backward: `make_tp_train_step` trains)."""
 
     def fwd(x_local: torch.Tensor) -> torch.Tensor:
         if model.training:
@@ -224,6 +254,249 @@ def make_tp_apply(model: nn.Module, mesh: Mesh2D) -> Callable[[torch.Tensor], to
         return mode.whole_tensor(out)
 
     return fwd
+
+
+def _flat_(mesh: Mesh, tensors, collective) -> None:
+    """`collective(mesh, flat)` (in place) on the tensors flattened
+    together, per dtype, and the result copied back into them."""
+    by_dtype = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for group in by_dtype.values():
+        flat = collective(mesh, torch.cat([t.reshape(-1) for t in group]))
+        parts = flat.split([t.numel() for t in group])
+        torch._foreach_copy_(group, [q.view_as(t) for q, t in zip(parts, group)])
+
+
+def _broadcast_(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """t overwritten with the rank 0 of `mesh`'s, in place (staged as the
+    transport stages it)."""
+    if mesh.size > 1:
+        w = wire(mesh, t)
+        dist.broadcast(w, src=dist.get_global_rank(mesh.group, 0), group=mesh.group)
+        if w is not t:
+            t.copy_(w)
+    return t
+
+
+def make_tp_train_step(cfg: TrainConfig, mesh: Mesh2D):
+    """`step(state, images_local, masks_local, valid_local, generator) ->
+    (state, {"loss": ...})`: one train step of the whole batch over the grid
+    `mesh`, the JAX package's one GSPMD program rank by rank.  Each rank
+    passes its grid row's rows of the batch (equal shares; the ranks of a
+    row the same rows) and a generator seeded alike on every rank; `state`
+    comes from `create_train_state` on a model that `shard_params_tp` has
+    split, so AdamW's moments keep the shards' shapes.
+
+    The model's train-mode forward runs under `TensorParallelMode` over
+    `mesh.model`, with BatchNorm's statistics, dropout's and stochastic
+    depth's draws over the whole batch (`mesh.data`); the loss is the
+    whole batch's `combined_loss_with_aux` (the focal term's sums and count
+    over the whole batch, the per-image means averaged over the shards);
+    the backward's gradients are summed over `mesh.data`, clipped by their
+    global norm (each split weight's shards counted once) and AdamW updates
+    this rank's parameters.  Every rank returns the whole batch's loss;
+    afterwards every whole parameter, its `.grad` (clipped) and moments and
+    every running statistic are the same on every rank, each split weight
+    and its `.grad` and moments this rank's slice of the one-process
+    step's."""
+    loss_cfg = cfg.loss
+
+    def tp_step(state: TrainState, images: torch.Tensor, masks: torch.Tensor,
+                valid: torch.Tensor, generator: Optional[torch.Generator]):
+        model = state.model.train()
+        model.zero_grad(set_to_none=True)
+        n_data = mesh.data.size
+        # the whole batch's valid pixels and images
+        counts = torch.tensor([float(valid.sum()), images.shape[0]], dtype=torch.float64,
+                              device=mesh.device)
+        all_sum_(mesh.data, counts)
+        COUNTS["data_all_reduce"] += 1
+        if counts[1].item() != images.shape[0] * n_data:
+            raise ValueError(f"tensor parallelism's train step takes equal shares of the batch: "
+                             f"{images.shape[0]} rows here, {int(counts[1].item())} in all over "
+                             f"{n_data} ranks")
+        mode = TensorParallelMode(mesh.model, data=mesh.data)
+        with mode:
+            logits, aux = model(images, generator=generator)
+            logits = mode.whole_tensor(logits)
+            aux = {k: mode.whole_tensor(v) for k, v in aux.items()}
+        mode.sync_running_stats()
+        # this shard's share of the whole batch's loss: the focal sums over
+        # the whole batch's valid pixels, the per-image means over n_data
+        focal_norm = (counts[0].clamp_min(1.0) / n_data).to(torch.float32)
+        loss = combined_loss_with_aux(logits, aux, masks, loss_cfg, valid,
+                                      focal_norm=focal_norm) / n_data
+        loss.backward()
+        loss = loss.detach()
+        params = dict(model.named_parameters())
+        whole = [p.grad for p in params.values() if p.grad is not None and split_of(p) is None]
+        split = [p.grad for p in params.values() if p.grad is not None and split_of(p)]
+        _flat_(mesh.data, whole + split + [loss], all_sum_)
+        COUNTS["data_all_reduce"] += 1
+        if mesh.model.size > 1:
+            # the replicas of a whole parameter compute its gradient alike,
+            # but a card's kernels may add in another order on each (cuDNN's
+            # weight gradients use atomics): model rank 0's gradients and
+            # running statistics go to the others, so the replicas stay equal
+            _flat_(mesh.model, whole + [b for n, b in model.named_buffers()
+                                        if n.endswith(("running_mean", "running_var"))],
+                   _broadcast_)
+            COUNTS["broadcast"] += 1
+
+        def squares(gs):
+            return torch.stack(torch._foreach_norm(gs)).double().square().sum() if gs else \
+                torch.zeros((), dtype=torch.float64, device=mesh.device)
+
+        # the global norm: each split weight's shards summed over the model
+        # axis, each whole parameter counted once
+        split_squares = all_sum_(mesh.model, squares(split))
+        COUNTS["all_reduce"] += 1
+        norm = (squares(whole) + split_squares).sqrt().to(whole[0].dtype)
+        opt_state = state.tx.update(params, {n: p.grad for n, p in params.items()},
+                                    state.opt_state, norm=norm)
+        return (dataclasses.replace(state, step=state.step + 1, opt_state=opt_state),
+                {"loss": loss})
+
+    return tp_step
+
+
+# ---- the collectives' backward ------------------------------------------------
+
+
+class _Gather(torch.autograd.Function):
+    """A channel slice all-gathered whole along `dim` over `mesh`; backward:
+    this rank's slice of the whole tensor's gradient (equal on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh: Mesh, dim: int):
+        ctx.mesh, ctx.dim = mesh, dim
+        return gather(mesh, x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        k = g.shape[ctx.dim] // ctx.mesh.size
+        return g.narrow(ctx.dim, ctx.mesh.rank * k, k), None, None
+
+
+class _Cut(torch.autograd.Function):
+    """A whole tensor cut to this rank's slice [lo, hi) along `dim`;
+    backward: the slices' gradients all-gathered over `mesh`, the whole
+    tensor's gradient on every rank."""
+
+    @staticmethod
+    def forward(ctx, t, mesh: Mesh, dim: int, lo: int, hi: int):
+        ctx.mesh, ctx.dim = mesh, dim
+        return t.narrow(dim, lo, hi - lo)
+
+    @staticmethod
+    def backward(ctx, g):
+        COUNTS["grad_all_gather"] += 1
+        return gather(ctx.mesh, g, ctx.dim), None, None, None, None
+
+
+class _Sum(torch.autograd.Function):
+    """Megatron's g: t summed over `mesh`; backward: the gradient passed on
+    (the sum is used alike on every rank, as a row split's)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh: Mesh):
+        # t's layout kept (a channels_last map stays one: dropout draws in
+        # its input's memory order)
+        return all_sum_(mesh, t.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Replicated(torch.autograd.Function):
+    """Megatron's f: a whole tensor that rank-specific work consumes (a
+    column split's input, an operand broadcast against a slice) as it is;
+    backward: its gradient summed over `mesh`."""
+
+    @staticmethod
+    def forward(ctx, t, mesh: Mesh):
+        ctx.mesh = mesh
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        COUNTS["grad_all_reduce"] += 1
+        return all_sum_(ctx.mesh, g.clone()), None
+
+
+def _per_channel(v: torch.Tensor, ndim: int) -> torch.Tensor:
+    return v.view(1, -1, *([1] * (ndim - 2)))
+
+
+def _accumulate(x: torch.Tensor) -> torch.dtype:
+    """The dtype PyTorch's own BatchNorm sums x's statistics in: double on
+    the CPU, fp32 (or x's wider dtype) on a card."""
+    return torch.float64 if x.device.type == "cpu" else torch.promote_types(x.dtype,
+                                                                            torch.float32)
+
+
+class _BatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm of x (C at dim 1) with the statistics of the
+    whole batch split over the ranks of `data` (None: this rank's alone),
+    computed in fp32 or x's wider dtype and cast to x's dtype once, as a
+    fused BatchNorm does, its sums taken as `_accumulate` says.  Each rank's
+    per-channel count, mean and sum of
+    squared deviations (two passes) are all-gathered and combined (Chan et
+    al.'s pairwise update, in fp64): sums of x and x^2 would lose the
+    variance of a channel whose mean is large against its spread.  The
+    backward is SyncBatchNorm's: the per-channel sums of the gradient and of
+    the gradient times the centred x all-reduced over `data`, so that x's
+    gradient is the whole batch's; the affine's is this rank's share.  Only
+    x is kept for it.  Returns y and the batch mean and biased variance
+    (no gradient), for the running statistics."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps: float, data: Optional[Mesh]):
+        nd, dims = x.dim(), [0] + list(range(2, x.dim()))
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        xa = x.to(_accumulate(x))
+        mean = xa.mean(dims)
+        m2 = (xa - _per_channel(mean, nd)).square().sum(dims)
+        del xa
+        c = mean.shape[0]
+        rows = torch.cat([torch.full((1,), float(x.numel() // c), dtype=torch.float64,
+                                     device=x.device), mean.double(), m2.double()])[None]
+        if data is not None and data.size > 1:
+            rows = gather(data, rows, 0)
+            COUNTS["data_all_gather"] += 1
+        ns, means, m2s = rows[:, :1], rows[:, 1:c + 1], rows[:, c + 1:]
+        n = ns.sum()
+        whole_mean = (ns * means).sum(0) / n
+        var = ((m2s + ns * (means - whole_mean).square()).sum(0) / n).to(xf.dtype)
+        mean = whole_mean.to(xf.dtype)
+        invstd = torch.rsqrt(var + eps)
+        y = (xf - _per_channel(mean, nd)) * _per_channel(invstd * weight.to(xf.dtype), nd)
+        y = (y + _per_channel(bias.to(xf.dtype), nd)).to(x.dtype)
+        ctx.save_for_backward(x, mean, invstd, weight)
+        ctx.n, ctx.data = n.to(xf.dtype), data
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, g, _mean, _var):
+        x, mean, invstd, weight = ctx.saved_tensors
+        nd, dims = x.dim(), [0] + list(range(2, x.dim()))
+        gf = g.to(mean.dtype)
+        xc = x.to(mean.dtype) - _per_channel(mean, nd)
+        acc = _accumulate(x)
+        sums = torch.stack([gf.to(acc).sum(dims), (gf.to(acc) * xc.to(acc)).sum(dims)]).to(
+            mean.dtype)
+        dbias, dweight = sums[0].clone(), sums[1] * invstd
+        if ctx.data is not None and ctx.data.size > 1:
+            all_sum_(ctx.data, sums)
+            COUNTS["data_all_reduce"] += 1
+        dx = gf - _per_channel(sums[0] / ctx.n, nd) \
+            - xc * _per_channel(invstd.square() * sums[1] / ctx.n, nd)
+        dx = dx * _per_channel(invstd * weight.to(mean.dtype), nd)
+        return (dx.to(x.dtype), dweight.to(weight.dtype), dbias.to(weight.dtype), None,
+                None)
 
 
 # ---- TensorParallelMode ------------------------------------------------------
@@ -300,13 +573,16 @@ def _keeps_nc(index, ndim: int) -> bool:
 
 class TensorParallelMode(TorchFunctionMode):
     """Run a model's forward with its weights split over the model axis
-    `mesh` (the module docstring gives the rules).  While it is active,
-    `ops.partition.active()` is this mode, for K2 and K1."""
+    `mesh` (the module docstring gives the rules); in train mode with the
+    batch split over the data axis `data` (None: one rank).  While it is
+    active, `ops.partition.active()` is this mode, for K2 and K1 and for
+    train mode's BatchNorm and random draws."""
 
-    def __init__(self, mesh: Mesh):
+    def __init__(self, mesh: Mesh, data: Optional[Mesh] = None):
         super().__init__()
-        self.mesh = mesh
+        self.mesh, self.data = mesh, data
         self._suspended = 0
+        self._stale = {}              # BatchNorms whose running statistics hold a slice
         self._rules = {F.conv2d: self._conv2d, F.conv_transpose2d: self._conv_transpose2d,
                        F.batch_norm: self._batch_norm, torch.cat: self._cat}
 
@@ -347,7 +623,7 @@ class TensorParallelMode(TorchFunctionMode):
         if not fresh:
             return cached[1]
         with self.suspended():
-            y = gather(self.mesh, t, 1)
+            y = _Gather.apply(t, self.mesh, 1)
             if t.dim() == 4 and not t.is_contiguous() and t.is_contiguous(
                     memory_format=torch.channels_last):
                 y = y.contiguous(memory_format=torch.channels_last)
@@ -363,13 +639,40 @@ class TensorParallelMode(TorchFunctionMode):
         if w.shape[1] != full:
             raise ValueError(f"tensor parallelism: a map of {w.shape[1]} channels meets a "
                              f"weight split from {full}")
-        return w[:, lo:hi]
+        return self._cut_whole(w, 1, lo, hi)
+
+    @staticmethod
+    def _grad(t: Optional[torch.Tensor]) -> bool:
+        return t is not None and t.requires_grad and torch.is_grad_enabled()
+
+    def _cut_whole(self, t: Optional[torch.Tensor], dim: int, lo: int, hi: int):
+        """[lo, hi) along `dim` of a whole tensor t (None stays None): its
+        gradient comes back whole from every rank's slice."""
+        if t is None:
+            return None
+        if self._grad(t) and self.mesh.size > 1:
+            with self.suspended():
+                return _Cut.apply(t, self.mesh, dim, lo, hi)
+        return t.narrow(dim, lo, hi - lo)
+
+    def _replicated(self, t: torch.Tensor) -> torch.Tensor:
+        """A whole t that rank-specific work consumes: its gradient there is
+        summed over the model axis."""
+        if self._grad(t) and self.mesh.size > 1:
+            with self.suspended():
+                return _Replicated.apply(t, self.mesh)
+        return t
 
     def _sum(self, part: torch.Tensor) -> torch.Tensor:
-        """A row split's partial sums added over the model axis, in fp32 (in
-        place where `part` is fp32)."""
+        """A row split's partial sums added over the model axis, in fp32 or
+        part's wider dtype (in place where `part` is that and no gradient is
+        taken)."""
+        wide = part.to(torch.promote_types(part.dtype, torch.float32))
         with self.suspended():
-            y = all_sum_(self.mesh, part.float())
+            if self._grad(part):
+                y = _Sum.apply(wide, self.mesh)
+            else:
+                y = all_sum_(self.mesh, wide)
         COUNTS["all_reduce"] += 1
         return y
 
@@ -384,10 +687,11 @@ class TensorParallelMode(TorchFunctionMode):
         if split is None:
             return func(self.whole_tensor(x), w, b, *rest, groups)
         _, _, lo, hi, full = split
-        cut_b = None if b is None else b[lo:hi]
+        cut_b = self._cut_whole(b, 0, lo, hi)
         if split.kind == "column":
             if groups == 1:
-                return _mark(func(self.whole_tensor(x), w, cut_b, *rest, 1), (lo, hi, full))
+                return _mark(func(self._replicated(self.whole_tensor(x)), w, cut_b, *rest, 1),
+                             (lo, hi, full))
             if groups == full and w.shape[1] == 1:    # depthwise, on the same channels
                 return _mark(func(self._cut(x, lo, hi, full), w, cut_b, *rest, hi - lo),
                              (lo, hi, full))
@@ -395,7 +699,7 @@ class TensorParallelMode(TorchFunctionMode):
             part = func(self._cut(x, lo, hi, full), w, None, *rest, 1)
             y = self._sum(part)
             if b is not None:
-                y.add_(b.float().view(1, -1, 1, 1))
+                y.add_(b.to(y.dtype).view(1, -1, 1, 1))
             return y.to(part.dtype)
         raise NotImplementedError(f"tensor parallelism: conv2d with {groups} groups split "
                                   f"along its {split.kind}")
@@ -413,13 +717,16 @@ class TensorParallelMode(TorchFunctionMode):
             raise NotImplementedError("tensor parallelism: conv_transpose2d split along its "
                                       f"{split.kind} with {a['groups']} groups")
         _, _, lo, hi, full = split
-        return _mark(func(self.whole_tensor(x), w, None if b is None else b[lo:hi], *rest),
-                     (lo, hi, full))
+        return _mark(func(self._replicated(self.whole_tensor(x)), w,
+                          self._cut_whole(b, 0, lo, hi), *rest), (lo, hi, full))
 
     def _batch_norm(self, func, args, kwargs):
         a = call_args(args, kwargs, ("input", "running_mean", "running_var", "weight", "bias",
                                  "training", "momentum", "eps"),
                   (None, None, None, None, None, False, 0.1, 1e-5))
+        if a["training"]:
+            raise NotImplementedError("tensor parallelism: BatchNorm in train mode runs through "
+                                      "models.blocks.batch_norm (the whole batch's statistics)")
         s = _slice(a["input"])
         if s is None:
             return func(*args, **kwargs)
@@ -452,11 +759,13 @@ class TensorParallelMode(TorchFunctionMode):
         ndim = max(t.dim() for t in tensors_of((args, kwargs)) if _slice(t) is not None)
 
         def cut(t):
-            if _slice(t) is not None or t.dim() < ndim - 1:
+            if _slice(t) is not None:
                 return t
             c = 1 - (ndim - t.dim())                  # C's dim in t, right-aligned
-            if t.shape[c] == full and full != hi - lo:
-                return t.narrow(c, lo, hi - lo)
+            if c >= 0 and t.shape[c] == full and full != hi - lo:
+                return self._cut_whole(t, c, lo, hi)
+            if c < 0 or t.shape[c] == 1:              # broadcast along C
+                return self._replicated(t)
             return t
 
         return _mark(func(*replace_tensors(args, cut), **replace_tensors(kwargs, cut)), s)
@@ -593,3 +902,69 @@ class TensorParallelMode(TorchFunctionMode):
             y = run(self.whole_tensor(x), block.fold(whole_weight))
         COUNTS["k1_gathered"] += bool(gathered)
         return y
+
+    # -- train mode's hooks (ops.partition) ------------------------------------------
+
+    def batch_norm(self, x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+        """`models.blocks.batch_norm` in train mode with the whole batch's
+        statistics over the data axis (`_BatchNorm`), normalised with the
+        biased variance; on a slice, its channels of the affine and of the
+        running statistics, which `sync_running_stats` makes whole
+        afterwards."""
+        s = _slice(x)
+        lo, hi = (s[0], s[1]) if s is not None else (0, x.shape[1])
+        with self.suspended():
+            weight = bn.weight if s is None else self._cut_whole(bn.weight, 0, lo, hi)
+            bias = bn.bias if s is None else self._cut_whole(bn.bias, 0, lo, hi)
+            y, mean, var = _BatchNorm.apply(x, weight, bias, bn.eps, self.data)
+            m = 1.0 - bn.momentum
+            with torch.no_grad():
+                bn.running_mean[lo:hi].mul_(m).add_(mean, alpha=1.0 - m)
+                bn.running_var[lo:hi].mul_(m).add_(var, alpha=1.0 - m)
+        if s is None:
+            return y
+        self._stale[id(bn)] = (bn, lo, hi)
+        return _mark(y, s)
+
+    def sync_running_stats(self) -> None:
+        """The running statistics of every BatchNorm that ran on a slice,
+        all-gathered whole over the model axis (one collective): afterwards
+        every rank holds them whole and equal."""
+        stale, self._stale = list(self._stale.values()), {}
+        if not stale or self.mesh.size == 1:
+            return
+        with torch.no_grad():
+            flat = torch.cat([t[lo:hi] for bn, lo, hi in stale
+                              for t in (bn.running_mean, bn.running_var)])
+            parts = gather(self.mesh, flat, 0).view(self.mesh.size, -1)
+            COUNTS["all_gather"] += 1
+            at = 0
+            for bn, lo, hi in stale:
+                for t in (bn.running_mean, bn.running_var):
+                    t.copy_(parts[:, at:at + hi - lo].reshape(-1))
+                    at += hi - lo
+
+    def uniform(self, x: torch.Tensor, generator: torch.Generator,
+                per_sample: bool = False) -> torch.Tensor:
+        """fp32 uniforms in [0, 1) for x: this rank's part of the draws over
+        the whole batch from `generator` (seeded alike on every rank), so
+        that they are the one process's draws on the whole batch at this
+        rank's rows and, for a slice, channels.  Each element of x whole
+        (in x's memory layout, as `torch.empty_like` draws), or one a
+        sample, `[N, 1, 1, 1]`, with `per_sample`."""
+        n = x.shape[0]
+        n_data, d = (1, 0) if self.data is None else (self.data.size, self.data.rank)
+        s = _slice(x)
+        with self.suspended():
+            if per_sample:
+                u = torch.rand((n * n_data, 1, 1, 1), device=x.device, generator=generator)
+            else:
+                layout = (torch.channels_last if x.dim() == 4 and not x.is_contiguous()
+                          and x.is_contiguous(memory_format=torch.channels_last)
+                          else torch.contiguous_format)
+                shape = (n * n_data, x.shape[1] if s is None else s[2], *x.shape[2:])
+                u = torch.empty(shape, dtype=torch.float32, device=x.device,
+                                memory_format=layout).uniform_(generator=generator)
+                if s is not None:
+                    u = u[:, s[0]:s[1]]
+            return u[d * n:(d + 1) * n]

@@ -4,7 +4,9 @@
 A full-resolution micrograph gives dozens of tiles (`ops/tiling.py`), each
 independent of the others: every rank forwards a contiguous share of the
 grid, the probabilities are gathered on every rank, and the Hann-weighted
-blend runs on the host, as in the JAX package.
+blend runs on the host, as in the JAX package.  `map_tiles_sharded` is that
+share-and-gather step alone; the Evaluator's tiled path with a mesh
+(`train/evaluator.py`) runs its chunks through it too.
 """
 
 from __future__ import annotations
@@ -12,7 +14,6 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
-import torch.distributed as dist
 
 from enhanced_unet_tpu_torch.ops.tiling import (
     cut_tiles,
@@ -21,7 +22,22 @@ from enhanced_unet_tpu_torch.ops.tiling import (
     stitch,
     tile_grid,
 )
-from enhanced_unet_tpu_torch.parallel.mesh import Mesh
+from enhanced_unet_tpu_torch.parallel.mesh import Mesh, gather
+
+
+def map_tiles_sharded(fn: Callable[[torch.Tensor], torch.Tensor], tiles: torch.Tensor,
+                      mesh: Mesh) -> torch.Tensor:
+    """`fn` of every tile, each rank computing its contiguous share: `tiles`
+    (a count that divides by the ranks) cut into `mesh.size` equal chunks,
+    this rank's through `fn` on its device, the results all-gathered over
+    the mesh in rank order (staged through host memory under gloo).  Every
+    rank calls it with the same tiles and gets the same result."""
+    if tiles.shape[0] % mesh.size:
+        raise ValueError(f"{tiles.shape[0]} tiles do not split over {mesh.size} ranks")
+    per = tiles.shape[0] // mesh.size
+    with torch.no_grad():
+        out = fn(tiles[mesh.rank * per:(mesh.rank + 1) * per]).contiguous()
+    return gather(mesh, out, 0)
 
 
 def tiled_inference_sharded(apply_fn: Callable[[torch.Tensor], torch.Tensor],
@@ -40,13 +56,13 @@ def tiled_inference_sharded(apply_fn: Callable[[torch.Tensor], torch.Tensor],
     per = -(-n // mesh.size)
     if per * mesh.size > n:
         tiles = torch.cat([tiles, tiles.new_zeros((per * mesh.size - n, *tiles.shape[1:]))])
-    with torch.no_grad():
-        probs = torch.softmax(apply_fn(tiles[mesh.rank * per:(mesh.rank + 1) * per]).float(),
-                              dim=-1).contiguous()
-    if probs.shape[-1] != num_classes:
-        raise ValueError(f"apply_fn gave {probs.shape[-1]} classes, expected {num_classes}")
-    chunks = [torch.empty_like(probs) for _ in range(mesh.size)]
-    dist.all_gather(chunks, probs, group=mesh.group)
-    probs = torch.cat(chunks)[:n].cpu()
+
+    def probs_of(share):
+        probs = torch.softmax(apply_fn(share).float(), dim=-1)
+        if probs.shape[-1] != num_classes:
+            raise ValueError(f"apply_fn gave {probs.shape[-1]} classes, expected {num_classes}")
+        return probs
+
+    probs = map_tiles_sharded(probs_of, tiles, mesh)[:n].cpu()
     window = torch.from_numpy(hann_window_2d(tile))[..., None]
     return stitch(probs[None], positions, ph, pw, window)[0, :h, :w]

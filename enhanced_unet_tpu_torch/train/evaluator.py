@@ -4,7 +4,10 @@
 - inference preprocess (CLAHE + sharpen), TTA forwards for enhanced_unet,
   the threshold cascade: on the device, one upload and one mask download;
 - `tiled=True`: full-resolution sliding-window tiling with Hann stitching
-  (`ops/tiling.py`), the whole pipeline on the device;
+  (`ops/tiling.py`), the whole pipeline on the device; with a `mesh` (the
+  data axis, `parallel.make_mesh`) the tiles of each chunk split over its
+  ranks, gathered and stitched on the host (`predict_probs_tiled`), as the
+  JAX Evaluator's mesh path;
 - `evaluate`: the reference's metric dict over loader batches: semantic
   metrics, instances (`postprocess/instances.py`), instance metrics, COCO
   mAP over RLE annotations and viability, on the host per image.
@@ -39,6 +42,7 @@ from enhanced_unet_tpu_torch.ops.tiling import (
     tile_grid,
 )
 from enhanced_unet_tpu_torch.ops.tta import run_model_single, tta_probs, tta_probs_batch
+from enhanced_unet_tpu_torch.parallel.tiled import map_tiles_sharded
 from enhanced_unet_tpu_torch.postprocess.instances import semantic_to_instances
 
 _METRIC_KEYS = (
@@ -61,14 +65,20 @@ class Evaluator:
     `device=None` means the CUDA card (raises without one); the model is
     moved there.  `tiled=True` serves at full resolution through `tile`
     windows `overlap` pixels apart; `tile_batch` tiles per forward (None:
-    all tiles of a call in one forward)."""
+    all tiles of a call in one forward).  `mesh` (a `parallel.Mesh`, every
+    rank calling with the same images; `device` None: the mesh's) shards
+    the tiled path's tile chunks over its ranks: `predict_semantic_mask` and
+    `evaluate` then take the host-stitched `predict_probs_tiled`;
+    `predict_semantic_masks_tiled` ignores it."""
 
     def __init__(self, model: nn.Module, model_name: str,
                  enable_tta: Optional[bool] = None,
                  device: Optional[Union[str, torch.device]] = None,
                  verbose: bool = True, tiled: bool = False, tile: int = 512,
-                 overlap: int = 64, tile_batch: Optional[int] = None):
-        self.device = resolve_device(device)
+                 overlap: int = 64, tile_batch: Optional[int] = None, mesh=None):
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device if device is None and mesh is not None
+                                     else device)
         self.model = model.to(self.device).eval()
         self.model_name = model_name
         self.enable_tta = (model_name == "enhanced_unet") if enable_tta is None \
@@ -101,7 +111,12 @@ class Evaluator:
 
     def predict_semantic_mask(self, image01: np.ndarray) -> np.ndarray:
         """[H, W, 3] float in [0, 1] -> mask [H, W]: int32, or uint8 when
-        tiled."""
+        tiled (with a mesh, the cascade on `predict_probs_tiled`'s
+        host-stitched probabilities)."""
+        if self.tiled and self.mesh is not None:
+            with torch.inference_mode():
+                probs = torch.from_numpy(self.predict_probs_tiled(image01)).to(self.device)
+                return convert_probs_to_mask(probs).to(torch.uint8).cpu().numpy()
         if self.tiled:
             return self.predict_semantic_masks_tiled(np.asarray(image01)[None])[0]
         with torch.inference_mode():
@@ -149,14 +164,26 @@ class Evaluator:
     def predict_probs_tiled(self, image01: np.ndarray) -> np.ndarray:
         """[H, W, 3] float in [0, 1] -> [H, W, C] full-resolution
         probabilities (numpy), the tiles forwarded in batches of
-        `tile_batch or 8` and stitched on the host."""
+        `tile_batch or 8` and stitched on the host.  With a mesh the batch
+        is rounded up to the mesh's size and down to a multiple of it, the
+        tiles padded with zero tiles to a multiple of the batch, and each
+        batch split over the ranks (`parallel.tiled.map_tiles_sharded`)."""
         enhanced = eval_preprocess(self._upload(image01) * 255.0) / 255.0
         h, w = int(enhanced.shape[0]), int(enhanced.shape[1])
         ph, pw, positions = tile_grid(h, w, self.tile, self.overlap)
         tiles = cut_tiles(reflect_pad(enhanced, ph, pw)[None], positions, self.tile)
+        n = tiles.shape[0]
         bs = self.tile_batch or 8
-        probs = np.concatenate([self._tile_probs(tiles[s:s + bs]).cpu().numpy()
-                                for s in range(0, tiles.shape[0], bs)])
+        if self.mesh is None:
+            chunks = [self._tile_probs(tiles[s:s + bs]) for s in range(0, n, bs)]
+        else:
+            bs = max(bs, self.mesh.size)
+            bs -= bs % self.mesh.size
+            if n % bs:
+                tiles = torch.cat([tiles, tiles.new_zeros((bs - n % bs, *tiles.shape[1:]))])
+            chunks = [map_tiles_sharded(self._tile_probs, tiles[s:s + bs], self.mesh)
+                      for s in range(0, tiles.shape[0], bs)]
+        probs = np.concatenate([c.cpu().numpy() for c in chunks])[:n]
         t = self.tile
         window = hann_window_2d(t)[..., None]
         acc = np.zeros((ph, pw, probs.shape[-1]), np.float32)

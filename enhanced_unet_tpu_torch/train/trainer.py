@@ -80,11 +80,14 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, params: Tensors, grads: Dict[str, Optional[torch.Tensor]],
-               state: AdamWState) -> AdamWState:
+               state: AdamWState, norm: Optional[torch.Tensor] = None) -> AdamWState:
+        """`norm`, when given, is the gradients' global norm to clip by (a
+        sharded model's, taken over the ranks), else their own."""
         names = [n for n in params if grads.get(n) is not None]
         p = [params[n] for n in names]
         g = [grads[n] for n in names]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+        if norm is None:
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
         clip = norm >= self.max_norm
         torch._foreach_div_(g, torch.where(clip, norm, 1.0))
         torch._foreach_mul_(g, torch.where(clip, self.max_norm, 1.0))

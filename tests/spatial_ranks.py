@@ -27,9 +27,10 @@ torch.set_num_threads(1)
 JOIN = 300.0          # seconds a spawned run may take
 
 
-def port_model(name, state_dict=None, **kwargs):
-    """`get_model(name)` on the CPU in fp32, with `state_dict` if given."""
-    model = get_model(name, dtype=torch.float32, device="cpu", seed=7, **kwargs)
+def port_model(name, state_dict=None, dtype=torch.float32, **kwargs):
+    """`get_model(name)` on the CPU computing in `dtype` with its parameters
+    in it (fp32 by default), with `state_dict` if given."""
+    model = get_model(name, dtype=dtype, device="cpu", seed=7, **kwargs).to(dtype)
     if state_dict is not None:
         model.load_state_dict(state_dict)
     return model

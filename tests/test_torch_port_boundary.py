@@ -74,7 +74,9 @@ for name in ("enhanced_unet_tpu_torch.ops.kernels.mbconv",
              "enhanced_unet_tpu_torch.parallel.spatial",
              "enhanced_unet_tpu_torch.parallel.tensor_parallel",
              "enhanced_unet_tpu_torch.parallel.torch_function",
-             "enhanced_unet_tpu_torch.ops.partition"):
+             "enhanced_unet_tpu_torch.ops.partition",
+             "enhanced_unet_tpu_torch.train.trainer",
+             "enhanced_unet_tpu_torch.train.evaluator"):
     assert name in walked and name in loaded, name
 print("BOUNDARY OK", len(walked))
 """
@@ -97,7 +99,8 @@ def _imported_names(path):
 _PORT_FILES = sorted(
     os.path.relpath(os.path.join(d, f), REPO)
     for d, _, files in os.walk(os.path.join(REPO, "enhanced_unet_tpu_torch"))
-    for f in files if f.endswith(".py")) + ["chip_smoke.py", "tests/spatial_ranks.py"]
+    for f in files if f.endswith(".py")) + ["chip_smoke.py", "tests/spatial_ranks.py",
+                                            "tests/tp_ranks.py"]
 
 
 def test_import_loads_no_jax_and_nothing_of_the_jax_package():

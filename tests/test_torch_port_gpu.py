@@ -1126,3 +1126,98 @@ def test_conv3x3_on_tensor_parallel_slices_matches_plain(cuda, kind, cin, cout, 
         else:
             got = torch.relu(sum(o.float() for o in outs) * scale + shift).to(dt)
     assert _rel(got, whole) <= _tol(dt)
+
+
+def test_tp_train_step_on_card_at_world_size_1(cuda, tmp_path):
+    """`make_tp_train_step` on a 1 x 1 grid (NCCL) against `make_train_step`
+    on the same weights and generator seed: the tiny flagship with dropout
+    and stochastic depth on, its weights split at `min_channels` 16, no K1
+    or K2 launch (train mode takes the stock path).  fp32: the loss within
+    1e-4 (cuDNN's BatchNorm and the mode's sum in another order); float64:
+    the loss within 1e-6 (the models cast their logits to fp32) and the
+    gradient tree within 1e-5 (relative L2; fp32 gradients of train-mode
+    BatchNorm at batch 2 are noise-limited)."""
+    import torch.distributed as dist
+
+    import chip_smoke
+    from enhanced_unet_tpu_torch.config import get_preset
+    from enhanced_unet_tpu_torch.models import get_model
+    from enhanced_unet_tpu_torch.ops.kernels import conv_fused, mbconv
+    from enhanced_unet_tpu_torch.parallel import make_mesh_2d, make_tp_train_step, shard_params_tp
+    from enhanced_unet_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    cfg = get_preset("enhanced_unet")
+    tiny = ("efficientnet-tiny", "efficientnet-tiny")
+    g = torch.Generator(device=cuda).manual_seed(3)
+    images = torch.rand(2, 64, 64, 3, generator=g, device=cuda)
+    masks = torch.randint(0, 3, (2, 64, 64), generator=g, device=cuda)
+    valid = torch.ones(2, 64, 64, dtype=torch.bool, device=cuda)
+    valid[1, :, 48:] = False
+    out = {}
+    mesh = make_mesh_2d(1, 1, init_dir=str(tmp_path))
+    try:
+        for dtype in (torch.float32, torch.float64):
+            for path in ("plain", "tp"):
+                model = get_model("enhanced_unet", dtype=dtype, device=cuda, seed=4,
+                                  encoder_names=tiny).to(dtype)
+                if path == "tp":
+                    shard_params_tp(model, mesh, 16)
+                state = create_train_state(model, cfg, 4, device=cuda)
+                step = make_tp_train_step(cfg, mesh) if path == "tp" else make_train_step(cfg)
+                before = (dict(mbconv.LAUNCHES), dict(conv_fused.LAUNCHES))
+                _, metrics = step(state, images.to(dtype), masks, valid,
+                                  torch.Generator(device=cuda).manual_seed(5))
+                torch.cuda.synchronize()
+                assert (dict(mbconv.LAUNCHES), dict(conv_fused.LAUNCHES)) == before
+                out[dtype, path] = (float(metrics["loss"]),
+                                    {n: p.grad.double().cpu()
+                                     for n, p in model.named_parameters() if p.grad is not None})
+    finally:
+        dist.destroy_process_group()
+    for dtype, tol in ((torch.float32, 1e-4), (torch.float64, 1e-6)):
+        want = out[dtype, "plain"][0]
+        assert abs(out[dtype, "tp"][0] - want) <= tol * abs(want), dtype
+    wide = torch.float64
+    assert chip_smoke.tree_rel_l2(out[wide, "tp"][1], out[wide, "plain"][1]) <= 1e-5
+
+
+def test_evaluator_mesh_on_card_at_world_size_1(cuda, tmp_path):
+    """`Evaluator(mesh=make_mesh(1))` (NCCL) on the tiny flagship in fp32,
+    tiled (tile 64, overlap 16, nine tiles padded to the chunk of 8's
+    multiple): the host-stitched probabilities equal the Evaluator's
+    without the mesh within 1e-5 and the masks on every pixel; K1 and K2
+    launched, no plain version."""
+    import numpy as np
+    import torch.distributed as dist
+
+    import chip_smoke
+    from enhanced_unet_tpu_torch.models import get_model
+    from enhanced_unet_tpu_torch.ops.kernels import conv_fused, mbconv
+    from enhanced_unet_tpu_torch.parallel import make_mesh
+    from enhanced_unet_tpu_torch.train.evaluator import Evaluator
+
+    tiny = ("efficientnet-tiny", "efficientnet-tiny")
+    model = get_model("enhanced_unet", dtype=torch.float32, device=cuda, seed=2,
+                      encoder_names=tiny)
+    img = np.random.default_rng(1).random((152, 144, 3)).astype(np.float32)
+    mesh = make_mesh(1, init_dir=str(tmp_path))
+    try:
+        evs = {m is not None: Evaluator(model, "enhanced_unet", tiled=True, tile=64,
+                                        overlap=16, mesh=m) for m in (None, mesh)}
+        plain, restore = chip_smoke.count_plain()
+        try:
+            before = sum(mbconv.LAUNCHES.values()), sum(conv_fused.LAUNCHES.values())
+            got = evs[True].predict_probs_tiled(img)
+            mask = evs[True].predict_semantic_mask(img)
+            torch.cuda.synchronize()
+            launched = (sum(mbconv.LAUNCHES.values()) > before[0],
+                        sum(conv_fused.LAUNCHES.values()) > before[1])
+        finally:
+            restore()
+        want = evs[False].predict_probs_tiled(img)
+        want_mask = evs[False].predict_semantic_mask(img)
+    finally:
+        dist.destroy_process_group()
+    assert launched == (True, True) and not any(plain.values())
+    assert np.abs(got - want).max() <= 1e-5
+    assert mask.dtype == np.uint8 and np.array_equal(mask, want_mask)
