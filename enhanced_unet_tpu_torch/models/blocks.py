@@ -33,6 +33,7 @@ from enhanced_unet_tpu_torch.ops.resize import (
     upsample2x_nchw,
     upsample2x_nearest_nchw,
 )
+from enhanced_unet_tpu_torch.utils.profiler import count
 
 
 def conv(x: torch.Tensor, layer: nn.Conv2d, dtype: torch.dtype,
@@ -125,7 +126,8 @@ def packed_conv3x3(layer: nn.Conv2d, bn: Optional[nn.BatchNorm2d],
     caller (a row split's partial sums).  They are packed again when the
     conv weight or bias or a BN tensor is replaced or edited in place
     (`load_state_dict`, `.to()`, `weight.mul_`: a new `data_ptr` or
-    `_version`), or for another dtype, device, slice or epilogue."""
+    `_version`), or for another dtype, device, slice or epilogue; each
+    packing counts `kernels.k2_pack` (`utils.profiler`)."""
     tensors = [layer.weight, layer.bias]
     if bn is not None:
         tensors += [bn.weight, bn.bias, bn.running_mean, bn.running_var]
@@ -134,6 +136,7 @@ def packed_conv3x3(layer: nn.Conv2d, bn: Optional[nn.BatchNorm2d],
     cached = layer.__dict__.get("_packed_conv3x3")
     if cached is not None and cached[0] == key:
         return cached[1]
+    count("kernels.k2_pack")
     lo, hi = cout_slice or (0, layer.weight.shape[0])
     bias = None if layer.bias is None else layer.bias[lo:hi]
     scale = torch.ones_like(layer.weight[:, 0, 0, 0])

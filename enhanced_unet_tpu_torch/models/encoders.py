@@ -42,6 +42,7 @@ from enhanced_unet_tpu_torch.ops.kernels.mbconv import (
     fold_mbconv_weights,
     mbconv_infer_nchw,
 )
+from enhanced_unet_tpu_torch.utils.profiler import count
 
 def _downsample(cin: int, cout: int, stride: int) -> Optional[nn.Sequential]:
     """torchvision's shortcut projection (1x1 stride-s conv, BN), where the
@@ -276,7 +277,8 @@ class MBConvBlock(nn.Module):
         or `_version`), or for another dtype or device.  A block that holds
         a channel slice of a weight (tensor parallelism, `ops.partition`)
         folds from `whole(t)`, each tensor whole, on every call and keeps
-        nothing; without `whole` it raises `ValueError`."""
+        nothing; without `whole` it raises `ValueError`.  Each folding counts
+        `kernels.k1_fold` (`utils.profiler`)."""
         def stats(bn):
             return bn.weight, bn.bias, bn.running_mean, bn.running_var
 
@@ -296,6 +298,7 @@ class MBConvBlock(nn.Module):
         cached = self.__dict__.get("_folded")
         if not sliced and cached is not None and cached[0] == key:
             return cached[1]
+        count("kernels.k1_fold")
         w = whole if sliced else (lambda t: t)
         with torch.inference_mode(False), torch.no_grad():
             folded = fold_mbconv_weights(

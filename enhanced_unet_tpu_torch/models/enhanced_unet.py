@@ -15,6 +15,11 @@ Parameter names are the reference state dict's (`unetpp.*`, `deeplab.*`,
 block's unused `x_0_4.attention1`, so a reference checkpoint loads strictly.
 The JAX package's TPU layout options (`packed_decoder`, `packed_fusion`)
 are accepted and change nothing: they compute the same math.
+
+Under a profiler a forward records five spans (`utils.profiler`):
+`model.unetpp.encoder`, `model.unetpp.decoder` (with its head),
+`model.deeplab.encoder`, `model.deeplab.decoder` (with its head and the x4
+resize) and `model.fusion` (gate, head, residual).
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from enhanced_unet_tpu_torch.models.blocks import (
 )
 from enhanced_unet_tpu_torch.models.encoders import EfficientNetEncoder
 from enhanced_unet_tpu_torch.models.unet import BasicUNet
+from enhanced_unet_tpu_torch.utils.profiler import span
 from enhanced_unet_tpu_torch.ops.resize import (
     resize_bilinear_align_corners_nchw,
     resize_bilinear_nchw,
@@ -153,8 +159,11 @@ class UNetPlusPlus(nn.Module):
         self.dtype = dtype
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
-        y = self.decoder(*self.encoder(x, generator))
-        return conv(y, self.segmentation_head[0], self.dtype).float()
+        with span("model.unetpp.encoder", device=x.device):
+            features = self.encoder(x, generator)
+        with span("model.unetpp.decoder", device=x.device):
+            y = self.decoder(*features)
+            return conv(y, self.segmentation_head[0], self.dtype).float()
 
 
 class _ASPPHead(nn.Sequential):
@@ -201,9 +210,12 @@ class DeepLabV3Plus(nn.Module):
         self.dtype = dtype
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
-        y = self.decoder(*self.encoder(x, generator), generator=generator)
-        logits = conv(y, self.segmentation_head[0], self.dtype).float()
-        return resize_bilinear_align_corners_nchw(logits, x.shape[2:])
+        with span("model.deeplab.encoder", device=x.device):
+            features = self.encoder(x, generator)
+        with span("model.deeplab.decoder", device=x.device):
+            y = self.decoder(*features, generator=generator)
+            logits = conv(y, self.segmentation_head[0], self.dtype).float()
+            return resize_bilinear_align_corners_nchw(logits, x.shape[2:])
 
 
 class EnhancedUNet(nn.Module):
@@ -268,29 +280,30 @@ class EnhancedUNet(nn.Module):
             x = x.contiguous(memory_format=torch.channels_last)
         out_main = self.unetpp(x, generator)
         out_aux = self.deeplab(x, generator)
-        fused = torch.cat([out_main, out_aux], dim=1)
-        full_hw = fused.shape[2:]
-        s = self.fusion_stride
-        if s > 1:
-            fused = resize_bilinear_nchw(fused, (full_hw[0] // s, full_hw[1] // s))
+        with span("model.fusion", device=x.device):
+            fused = torch.cat([out_main, out_aux], dim=1)
+            full_hw = fused.shape[2:]
+            s = self.fusion_stride
+            if s > 1:
+                fused = resize_bilinear_nchw(fused, (full_hw[0] // s, full_hw[1] // s))
 
-        dt = self.dtype
-        gate = self.attention_gate
-        a = batch_norm(conv(fused, gate[0], dt), gate[1])
-        a = F.gelu(a)                      # exact erf form
-        a = batch_norm(conv(a, gate[3], dt), gate[4])
-        gated = fused * torch.sigmoid(a.float())
+            dt = self.dtype
+            gate = self.attention_gate
+            a = batch_norm(conv(fused, gate[0], dt), gate[1])
+            a = F.gelu(a)                      # exact erf form
+            a = batch_norm(conv(a, gate[3], dt), gate[4])
+            gated = fused * torch.sigmoid(a.float())
 
-        head = self.fusion_head
-        y = gated.to(dt)
-        for k, (c_i, b_i) in enumerate(((0, 1), (4, 5), (8, 9))):
-            y = conv_bn_act(y, head[c_i], head[b_i], True, dt)
-            if self.training and k < 2:
-                y = dropout(y, self.fusion_dropout[k], generator)
-        logits = conv(y, head[11], dt).float()
-        logits = logits + conv(gated, self.fusion_residual, torch.float32)
-        if s > 1:
-            logits = resize_bilinear_nchw(logits, full_hw)
+            head = self.fusion_head
+            y = gated.to(dt)
+            for k, (c_i, b_i) in enumerate(((0, 1), (4, 5), (8, 9))):
+                y = conv_bn_act(y, head[c_i], head[b_i], True, dt)
+                if self.training and k < 2:
+                    y = dropout(y, self.fusion_dropout[k], generator)
+            logits = conv(y, head[11], dt).float()
+            logits = logits + conv(gated, self.fusion_residual, torch.float32)
+            if s > 1:
+                logits = resize_bilinear_nchw(logits, full_hw)
 
         def nhwc(t):
             return t.permute(0, 2, 3, 1)

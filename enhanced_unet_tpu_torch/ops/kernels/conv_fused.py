@@ -50,9 +50,10 @@ import torch
 import torch.nn.functional as F
 
 from enhanced_unet_tpu_torch.ops.kernels import build
+from enhanced_unet_tpu_torch.utils.profiler import track_launches
 
 VARIANTS = ("wgmma", "smallc", "mma", "f32")
-LAUNCHES = {f"conv3x3_bn_act_{v}": 0 for v in VARIANTS}
+LAUNCHES = track_launches({f"conv3x3_bn_act_{v}": 0 for v in VARIANTS})
 _SOURCE = "conv3x3_bn_act"
 SMALLC_K = 64              # the small-Cin kernel's packed K: 9 * Cin <= 64
 SMALLC_MAX_CIN = SMALLC_K // 9

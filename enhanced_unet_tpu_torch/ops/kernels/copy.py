@@ -19,8 +19,9 @@ import ctypes
 import torch
 
 from enhanced_unet_tpu_torch.ops.kernels import build
+from enhanced_unet_tpu_torch.utils.profiler import track_launches
 
-LAUNCHES = {"copy": 0}
+LAUNCHES = track_launches({"copy": 0})
 _SOURCE = "copy"
 
 

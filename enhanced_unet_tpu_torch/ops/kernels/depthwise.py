@@ -39,8 +39,9 @@ import torch
 import torch.nn.functional as F
 
 from enhanced_unet_tpu_torch.ops.kernels import build
+from enhanced_unet_tpu_torch.utils.profiler import track_launches
 
-LAUNCHES = {"dw3x3_bias_silu": 0, "dw_rows_silu": 0}
+LAUNCHES = track_launches({"dw3x3_bias_silu": 0, "dw_rows_silu": 0})
 _SOURCE = "depthwise"
 _INT_MAX = 2 ** 31 - 1
 

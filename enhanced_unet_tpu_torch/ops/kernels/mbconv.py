@@ -71,12 +71,14 @@ import torch
 import torch.nn.functional as F
 
 from enhanced_unet_tpu_torch.ops.kernels import build
+from enhanced_unet_tpu_torch.utils.profiler import track_launches
 
-LAUNCHES = {"mbconv_pass1": 0, "mbconv_pass2": 0,
-            "mbconv_nhwc_pass1": 0, "mbconv_nhwc_pass2": 0,
-            "mbconv_nhwc_expand_pass1": 0, "mbconv_nhwc_expand_pass2": 0,
-            # pass 1 with a counted-rows window (a band of a spatially split map)
-            "mbconv_pass1_window": 0, "mbconv_nhwc_pass1_window": 0}
+LAUNCHES = track_launches({
+    "mbconv_pass1": 0, "mbconv_pass2": 0,
+    "mbconv_nhwc_pass1": 0, "mbconv_nhwc_pass2": 0,
+    "mbconv_nhwc_expand_pass1": 0, "mbconv_nhwc_expand_pass2": 0,
+    # pass 1 with a counted-rows window (a band of a spatially split map)
+    "mbconv_pass1_window": 0, "mbconv_nhwc_pass1_window": 0})
 _SOURCE = "mbconv"
 _NHWC_SOURCE = "mbconv_nhwc"
 NHWC_TILE_W = 32                   # csrc/mbconv_nhwc.cu TW

@@ -2,7 +2,8 @@
 identity + hflip + vflip + 0.75x + 1.25x, probabilities averaged.
 
 Images are NHWC (or HWC) float tensors in [0, 1].  `apply_fn` maps
-[N, H, W, 3] images to [N, H, W, C] logits.
+[N, H, W, 3] images to [N, H, W, C] logits.  Under a profiler
+`tta_probs_batch` records a `serve.tta` span (`utils.profiler`).
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from typing import Callable, Tuple
 import torch
 
 from enhanced_unet_tpu_torch.ops.resize import pad_to_multiple, resize_bilinear
+from enhanced_unet_tpu_torch.utils.profiler import span
 
 ApplyFn = Callable[[torch.Tensor], torch.Tensor]
 
@@ -38,16 +40,17 @@ def tta_probs_batch(apply_fn: ApplyFn, images: torch.Tensor,
     trio (identity, hflip, vflip) runs as one [3B, ...] forward, each scale
     as one [B, ...] forward."""
     b, h, w = images.shape[:3]
-    if not enable_tta:
-        return _probs(apply_fn, images, h, w)
-    trio = torch.cat([images, images.flip(2), images.flip(1)])
-    probs = _probs(apply_fn, trio, h, w)
-    acc = [probs[:b], probs[b:2 * b].flip(2), probs[2 * b:].flip(1)]
-    for s in scales:
-        sh, sw = int(h * s), int(w * s)
-        p = _probs(apply_fn, resize_bilinear(images, (sh, sw)), sh, sw)
-        acc.append(resize_bilinear(p, (h, w)))
-    return torch.stack(acc).mean(dim=0)
+    with span("serve.tta", device=images.device, views=3 + len(scales) if enable_tta else 1):
+        if not enable_tta:
+            return _probs(apply_fn, images, h, w)
+        trio = torch.cat([images, images.flip(2), images.flip(1)])
+        probs = _probs(apply_fn, trio, h, w)
+        acc = [probs[:b], probs[b:2 * b].flip(2), probs[2 * b:].flip(1)]
+        for s in scales:
+            sh, sw = int(h * s), int(w * s)
+            p = _probs(apply_fn, resize_bilinear(images, (sh, sw)), sh, sw)
+            acc.append(resize_bilinear(p, (h, w)))
+        return torch.stack(acc).mean(dim=0)
 
 
 def tta_probs(apply_fn: ApplyFn, image: torch.Tensor, enable_tta: bool = True,

@@ -12,6 +12,11 @@
   metrics, instances (`postprocess/instances.py`), instance metrics, COCO
   mAP over RLE annotations and viability, on the host per image.
 
+Under a profiler each request records a `serve.request` span (`utils.
+profiler`) around its stages, `serve.upload`, `serve.preprocess`,
+`serve.tiles`, `serve.tta` (`ops/tta.py`), `serve.stitch`, `serve.cascade`
+and `serve.download`, and each forward a `model.forward` span.
+
 On a CUDA device `evaluate` takes RLE runs and mask IoUs from the native
 host ops (`enhanced_unet_tpu_torch.native`, which raises if it cannot be
 built); on the CPU it uses their numpy versions.  Both give the same
@@ -44,6 +49,7 @@ from enhanced_unet_tpu_torch.ops.tiling import (
 from enhanced_unet_tpu_torch.ops.tta import run_model_single, tta_probs, tta_probs_batch
 from enhanced_unet_tpu_torch.parallel.tiled import map_tiles_sharded
 from enhanced_unet_tpu_torch.postprocess.instances import semantic_to_instances
+from enhanced_unet_tpu_torch.utils.profiler import span
 
 _METRIC_KEYS = (
     "sem_mean_iou", "sem_mean_dice",
@@ -88,7 +94,15 @@ class Evaluator:
         self.tile, self.overlap, self.tile_batch = tile, overlap, tile_batch
 
     def _apply(self, x: torch.Tensor) -> torch.Tensor:
-        return self.model(x)[0]
+        n, h, w = (int(d) for d in x.shape[:3])
+        with span("model.forward", device=self.device, n=n, h=h, w=w):
+            return self.model(x)[0]
+
+    def _request(self, images: np.ndarray, tiled: bool):
+        """The root span of a request of `images` ([B, H, W, 3] or [H, W, 3])."""
+        b, h, w = (1, *images.shape[:2]) if images.ndim == 3 else images.shape[:3]
+        return span("serve.request", device=self.device, images=int(b), height=int(h),
+                    width=int(w), tiled=tiled)
 
     def update_state(self, state) -> None:
         """Swap in new weights for the same model: the port's `TrainState`
@@ -102,31 +116,50 @@ class Evaluator:
     def batch_pipeline(self, imgs: torch.Tensor) -> torch.Tensor:
         """[B, H, W, 3] float in [0, 1] on the device -> [B, H, W] int32
         masks; every TTA view of every image rides one forward per size."""
-        enhanced = eval_preprocess(imgs * 255.0) / 255.0
+        enhanced = self._enhance(imgs)
         probs = tta_probs_batch(self._apply, enhanced, self.enable_tta)
-        return convert_probs_to_mask(probs)
+        with span("serve.cascade"):
+            return convert_probs_to_mask(probs)
 
     def _upload(self, images01: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(images01, np.float32), device=self.device)
+        with span("serve.upload"):
+            return torch.as_tensor(np.asarray(images01, np.float32), device=self.device)
+
+    @staticmethod
+    def _enhance(images: torch.Tensor) -> torch.Tensor:
+        """CLAHE + sharpen of [..., H, W, 3] images in [0, 1]."""
+        with span("serve.preprocess"):
+            return eval_preprocess(images * 255.0) / 255.0
+
+    @staticmethod
+    def _download(t: torch.Tensor) -> np.ndarray:
+        with span("serve.download"):
+            return t.cpu().numpy()
 
     def predict_semantic_mask(self, image01: np.ndarray) -> np.ndarray:
         """[H, W, 3] float in [0, 1] -> mask [H, W]: int32, or uint8 when
         tiled (with a mesh, the cascade on `predict_probs_tiled`'s
         host-stitched probabilities)."""
-        if self.tiled and self.mesh is not None:
-            with torch.inference_mode():
-                probs = torch.from_numpy(self.predict_probs_tiled(image01)).to(self.device)
-                return convert_probs_to_mask(probs).to(torch.uint8).cpu().numpy()
-        if self.tiled:
+        if self.tiled and self.mesh is None:
             return self.predict_semantic_masks_tiled(np.asarray(image01)[None])[0]
-        with torch.inference_mode():
-            enhanced = eval_preprocess(self._upload(image01) * 255.0) / 255.0
-            probs = tta_probs(self._apply, enhanced, self.enable_tta)
-            return convert_probs_to_mask(probs).cpu().numpy()
+        with torch.inference_mode(), self._request(np.asarray(image01), self.tiled):
+            if self.tiled:
+                probs = self._host_tiled_probs(image01)
+                with span("serve.upload"):
+                    probs = torch.from_numpy(probs).to(self.device)
+                with span("serve.cascade"):
+                    mask = convert_probs_to_mask(probs).to(torch.uint8)
+            else:
+                enhanced = self._enhance(self._upload(image01))
+                probs = tta_probs(self._apply, enhanced, self.enable_tta)
+                with span("serve.cascade"):
+                    mask = convert_probs_to_mask(probs)
+            return self._download(mask)
 
     def predict_semantic_masks(self, images01: np.ndarray) -> np.ndarray:
         """[B, H, W, 3] float in [0, 1] -> int masks [B, H, W]."""
-        return self.batch_pipeline(self._upload(images01)).cpu().numpy()
+        with self._request(np.asarray(images01), False):
+            return self._download(self.batch_pipeline(self._upload(images01)))
 
     def _tile_probs(self, tiles: torch.Tensor) -> torch.Tensor:
         """[n, tile, tile, 3] enhanced tiles -> [n, tile, tile, C]
@@ -134,21 +167,23 @@ class Evaluator:
         over the tiles), or one softmaxed forward."""
         if self.enable_tta:
             return tta_probs_batch(self._apply, tiles, True)
-        return torch.softmax(self._apply(tiles).float(), dim=-1)
+        with span("serve.tta", views=1):
+            return torch.softmax(self._apply(tiles).float(), dim=-1)
 
     def tiled_probs(self, enhanced: torch.Tensor) -> torch.Tensor:
         """[B, H, W, 3] enhanced images on the device -> [B, H, W, C]
         probabilities, stitched on the device: every image's tiles, in
         forwards of `tile_batch` tiles (all at once when None)."""
         b, h, w = (int(s) for s in enhanced.shape[:3])
-        ph, pw, positions = tile_grid(h, w, self.tile, self.overlap)
-        tiles = cut_tiles(reflect_pad(enhanced, ph, pw), positions, self.tile)
+        with span("serve.tiles"):
+            ph, pw, positions = tile_grid(h, w, self.tile, self.overlap)
+            tiles = cut_tiles(reflect_pad(enhanced, ph, pw), positions, self.tile)
         bs = self.tile_batch or tiles.shape[0]
-        probs = torch.cat([self._tile_probs(tiles[s:s + bs])
-                           for s in range(0, tiles.shape[0], bs)])
-        window = torch.from_numpy(hann_window_2d(self.tile))[..., None].to(self.device)
-        probs = probs.reshape(b, len(positions), *probs.shape[1:])
-        return stitch(probs, positions, ph, pw, window)[:, :h, :w]
+        chunks = [self._tile_probs(tiles[s:s + bs]) for s in range(0, tiles.shape[0], bs)]
+        with span("serve.stitch"):
+            window = torch.from_numpy(hann_window_2d(self.tile))[..., None].to(self.device)
+            probs = torch.cat(chunks).reshape(b, len(positions), *chunks[0].shape[1:])
+            return stitch(probs, positions, ph, pw, window)[:, :h, :w]
 
     @torch.inference_mode()
     def predict_semantic_masks_tiled(self, images01: np.ndarray) -> np.ndarray:
@@ -156,9 +191,11 @@ class Evaluator:
         resolution: enhance, the tile grid, the tile forwards (TTA per tile
         when enabled), Hann stitching and the cascade on the device; one
         upload, one download."""
-        enhanced = eval_preprocess(self._upload(images01) * 255.0) / 255.0
-        probs = self.tiled_probs(enhanced)
-        return convert_probs_to_mask(probs).to(torch.uint8).cpu().numpy()
+        with self._request(np.asarray(images01), True):
+            probs = self.tiled_probs(self._enhance(self._upload(images01)))
+            with span("serve.cascade"):
+                mask = convert_probs_to_mask(probs).to(torch.uint8)
+            return self._download(mask)
 
     @torch.inference_mode()
     def predict_probs_tiled(self, image01: np.ndarray) -> np.ndarray:
@@ -168,10 +205,15 @@ class Evaluator:
         is rounded up to the mesh's size and down to a multiple of it, the
         tiles padded with zero tiles to a multiple of the batch, and each
         batch split over the ranks (`parallel.tiled.map_tiles_sharded`)."""
-        enhanced = eval_preprocess(self._upload(image01) * 255.0) / 255.0
+        with self._request(np.asarray(image01), True):
+            return self._host_tiled_probs(image01)
+
+    def _host_tiled_probs(self, image01: np.ndarray) -> np.ndarray:
+        enhanced = self._enhance(self._upload(image01))
         h, w = int(enhanced.shape[0]), int(enhanced.shape[1])
-        ph, pw, positions = tile_grid(h, w, self.tile, self.overlap)
-        tiles = cut_tiles(reflect_pad(enhanced, ph, pw)[None], positions, self.tile)
+        with span("serve.tiles"):
+            ph, pw, positions = tile_grid(h, w, self.tile, self.overlap)
+            tiles = cut_tiles(reflect_pad(enhanced, ph, pw)[None], positions, self.tile)
         n = tiles.shape[0]
         bs = self.tile_batch or 8
         if self.mesh is None:
@@ -183,15 +225,16 @@ class Evaluator:
                 tiles = torch.cat([tiles, tiles.new_zeros((bs - n % bs, *tiles.shape[1:]))])
             chunks = [map_tiles_sharded(self._tile_probs, tiles[s:s + bs], self.mesh)
                       for s in range(0, tiles.shape[0], bs)]
-        probs = np.concatenate([c.cpu().numpy() for c in chunks])[:n]
-        t = self.tile
-        window = hann_window_2d(t)[..., None]
-        acc = np.zeros((ph, pw, probs.shape[-1]), np.float32)
-        wacc = np.zeros((ph, pw, 1), np.float32)
-        for i, (y, x) in enumerate(positions):
-            acc[y:y + t, x:x + t] += probs[i] * window
-            wacc[y:y + t, x:x + t] += window
-        return (acc / np.maximum(wacc, 1e-8))[:h, :w]
+        probs = np.concatenate([self._download(c) for c in chunks])[:n]
+        with span("serve.stitch"):
+            t = self.tile
+            window = hann_window_2d(t)[..., None]
+            acc = np.zeros((ph, pw, probs.shape[-1]), np.float32)
+            wacc = np.zeros((ph, pw, 1), np.float32)
+            for i, (y, x) in enumerate(positions):
+                acc[y:y + t, x:x + t] += probs[i] * window
+                wacc[y:y + t, x:x + t] += window
+            return (acc / np.maximum(wacc, 1e-8))[:h, :w]
 
     @torch.inference_mode()
     def predict_probs(self, image01: np.ndarray) -> np.ndarray:

@@ -1221,3 +1221,64 @@ def test_evaluator_mesh_on_card_at_world_size_1(cuda, tmp_path):
     assert launched == (True, True) and not any(plain.values())
     assert np.abs(got - want).max() <= 1e-5
     assert mask.dtype == np.uint8 and np.array_equal(mask, want_mask)
+
+
+def test_spans_time_the_device_their_work_runs_on(cuda):
+    # CUDA is initialised: a CPU span still gives its host interval, a span
+    # on the card its events' time, and a child inherits its parent's card
+    from torch.profiler import ProfilerActivity, profile
+
+    from enhanced_unet_tpu_torch.utils import profiler
+
+    torch.ones(1, device=cuda)
+    rec = profiler.Recorder()
+    cycles = 200_000_000                 # ~0.1 s at the H100's clock
+    with profile(activities=[ProfilerActivity.CPU]):
+        with rec.span("cpu", device="cpu"):
+            torch.ones(64).sum()
+        with rec.span("none"):
+            pass
+        with rec.span("card", device=cuda):
+            with rec.span("sleep"):
+                torch.cuda._sleep(cycles)
+    torch.cuda.synchronize()
+    cpu, none, card, sleep = rec.spans()
+    for s in (cpu, none):
+        assert s["device_ms"] == (s["end_ns"] - s["start_ns"]) / 1e6
+    host_ms = (sleep["end_ns"] - sleep["start_ns"]) / 1e6
+    assert sleep["device_ms"] > max(20.0, 4 * host_ms)
+    assert card["device_ms"] >= sleep["device_ms"]
+
+
+def test_a_traced_request_after_a_weight_swap_rebuilds_and_launches(cuda):
+    # the operator's check after `update_state`: the first traced request
+    # packs and folds every cached operand once and launches K1 and K2 (the
+    # tiny flagship in fp32: K2's CUDA-core kernel, K1's nchw kernels)
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from enhanced_unet_tpu_torch.models import get_model
+    from enhanced_unet_tpu_torch.train.evaluator import Evaluator
+    from enhanced_unet_tpu_torch.utils import profiler
+
+    model = get_model("enhanced_unet", dtype=torch.float32, device=cuda, seed=2,
+                      encoder_names=("efficientnet-tiny", "efficientnet-tiny"))
+    ev = Evaluator(model, "enhanced_unet", enable_tta=False, device=cuda, verbose=False,
+                   tiled=True, tile=64, overlap=16)
+    img = np.random.default_rng(0).random((1, 96, 128, 3)).astype(np.float32)
+    ev.predict_semantic_masks_tiled(img)
+    packs = sum("_packed_conv3x3" in m.__dict__ for m in model.modules())
+    folds = sum("_folded" in m.__dict__ for m in model.modules())
+    ev.update_state({k: v + 0.01 if v.is_floating_point() else v
+                     for k, v in model.state_dict().items()})
+    profiler.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        ev.predict_semantic_masks_tiled(img)
+    got = profiler.counters()
+    assert packs > 0 and folds > 0
+    assert (got["kernels.k2_pack"], got["kernels.k1_fold"]) == (packs, folds)
+    assert got["launches.conv3x3_bn_act_f32"] > 0
+    assert sum(v for k, v in got.items() if k.startswith("launches.mbconv")) > 0
+    (root,) = [s for s in profiler.spans() if s["parent"] is None]
+    forwards = [s for s in profiler.spans() if s["name"] == "model.forward"]
+    assert 0 < sum(f["device_ms"] for f in forwards) <= root["device_ms"]
