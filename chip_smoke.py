@@ -27,8 +27,15 @@ Phases (any failure exits non-zero):
  3b. the kernel benches (`enhanced_unet_tpu_torch.benchmarks`): every launch
     count set to 0, then the `main()` of `dw_variants` and `mbconv_instr`
     and `mbconv_proto`'s two cases one by one, at their full shapes, which
-    hold each kernel against its plain version and time it; every
-    depthwise, copy and MBConv count must move (B1 stage 0 reaches K1's
+    hold each kernel against its plain version and time it, and
+    `dw_dilated_bn_silu_nhwc` (bf16, channels_last, dilation 2) at the
+    twelve shapes of the DeepLab encoder's dilated blocks in a tiled 2048^2
+    request (C 960 and 1632 at k5, 1632 and 2688 at k3, on [75,C,32,32],
+    [25,C,24,24] and [25,C,40,40]), each within 2e-2 of max |value| of its
+    plain version and 5e-2 of the stock sequence it replaced (`F.pad`,
+    cuDNN's grouped conv, eval BN, SiLU; the library yardstick), its entry
+    the sums over the request's 30 launches; every depthwise, copy and
+    MBConv count must move (B1 stage 0 reaches K1's
     `nhwc` kernels, stage 1 the `nhwc_expand` ones, B2's passes the `nchw`
     ones).  The benches' rows give the kernels' entries (B2's bf16 passes
     their own, beside the library's channels_last block on the same
@@ -42,7 +49,9 @@ Phases (any failure exits non-zero):
     UNet++ + EfficientNet-B4 DeepLabV3+, bf16, seeded random weights) served
     by an `Evaluator` with TTA: three requests of two 512x512 images; every
     count set to 0 before it; the serving kernels' counts (K2's wgmma and
-    small-Cin variants, K1's two `nhwc` passes) must move and every other
+    small-Cin variants, K1's two `nhwc` passes, and the DeepLab encoder's
+    dilated depthwise kernel: 30 a request, ten blocks in each of three
+    forwards) must move and every other
     count (K1's `nhwc_expand` and `nchw` kernels among them: the bf16
     request launches no `nchw` kernel) must not, and K2's plain version
     must not run; every logit finite; the first request records each shape
@@ -75,8 +84,9 @@ Phases (any failure exits non-zero):
     chunk) on one seeded 2048x2048 micrograph, three requests, every count
     set to 0 before the first and read after each: a [2048,2048] uint8 mask with at least two
     classes; the 25 tiles in three forwards (the 75-tile trio, 25 at 384^2,
-    25 at 640^2); K2's wgmma/small-Cin and K1's `nhwc` counts move, no
-    other; no pack or fold after the first request; wall ms, CUDA-event
+    25 at 640^2); K2's wgmma/small-Cin and K1's `nhwc` counts move, and the
+    dilated depthwise kernel's by 30 a request, no other; no pack or fold
+    after the first request; wall ms, CUDA-event
     span, peak memory, launches per request, the shapes K1 and K2 were
     called at, a profile; the host-stitched path (chunks of 8) and
     `tile_batch=8` against the whole-grid mask (at least 99.99% of pixels
@@ -295,7 +305,9 @@ Phases (any failure exits non-zero):
     version; K2 at each shape the two-rank chunks gave it that phase 4b did
     not hold, and K1 at each of their shapes, checked and timed as in 9d (c);
 10. a `{"kernels": [...]}` line, each entry's launches counted in the run
-    whose time and shape it reports (the serving kernels' also per tiled
+    whose time and shape it reports (the dilated depthwise kernel's, whose
+    time sums a tiled request's shapes, per tiled request, with each shape's
+    row in `request_shapes`; the serving kernels' also per tiled
     request, `tiled_launches`; K2's also per zoo request, `zoo_launches`;
     the serving kernels' per tensor-parallel call on the 1 x 2 grid,
     `tp_launches`, with K2's and K1's rows at 9d's shapes, `tp_shapes`; and
@@ -1342,6 +1354,66 @@ def print_k2(r: dict, prefix: str = "") -> None:
           f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f} (conv alone "
           f"{r['library_conv_ms']:.4f}), bound {r['bound_ms']:.4f} ({r['bound_by']})")
 
+
+# the DeepLab encoder's dilated blocks (B4 stages 5-6 at output stride 16,
+# dilation 2) run one kernel each a forward, and a request with TTA runs
+# three forwards
+DILATED = "dw_dilated_bn_silu_nhwc"
+DILATED_A_REQUEST = 30
+# (mid width, kernel size, blocks a forward) of those blocks, and (images,
+# stride-16 map) of a tiled 2048^2 request's three forwards
+DILATED_BLOCKS = ((960, 5, 1), (1632, 5, 7), (1632, 3, 1), (2688, 3, 1))
+DILATED_MAPS = ((75, 32), (25, 24), (25, 40))
+
+
+def dilated_rows(dev) -> list:
+    """`dw_dilated_bn_silu_nhwc` (bf16, channels_last, dilation 2) at each
+    shape of a tiled request: `microtime.kernel_row` against its plain
+    version (2e-2) and against the stock sequence it replaced (`F.pad`,
+    cuDNN's grouped conv, eval BN and SiLU in bf16, which round twice more:
+    5e-2), with the launches a request (`blocks`), the bytes (the input read
+    and the output written once, the folded weights and the shift) and the
+    operations (k*k multiply-adds, then the shift and the SiLU ~5) per
+    call."""
+    import torch
+    import torch.nn.functional as F
+
+    from enhanced_unet_tpu_torch.benchmarks.microtime import kernel_row
+    from enhanced_unet_tpu_torch.ops.kernels.depthwise import (
+        DwFolded,
+        dw_dilated_bn_silu_nhwc,
+        dw_dilated_bn_silu_nhwc_plain,
+    )
+
+    d, eps, rows = 2, 1e-3, []
+    g = torch.Generator(device=dev).manual_seed(0)
+    for n, hw in DILATED_MAPS:
+        for c, k, blocks in DILATED_BLOCKS:
+            x = (torch.randn(n, c, hw, hw, generator=g, device=dev) * 0.5).to(
+                torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            w = torch.randn(c, 1, k, k, generator=g, device=dev) * 0.2
+            scale = torch.rand(c, generator=g, device=dev) + 0.5
+            shift = torch.randn(c, generator=g, device=dev) * 0.1
+            p = DwFolded((w[:, 0] * scale[:, None, None]).to(torch.bfloat16)
+                         .permute(1, 2, 0).contiguous(), shift)
+            w16, pad = w.to(torch.bfloat16), d * (k // 2)
+            # eval BN with running mean 0 and variance 1 - eps: y * scale + shift
+            mean, var = torch.zeros_like(scale), torch.ones_like(scale) - eps
+
+            def stock():
+                y = F.conv2d(F.pad(x, [pad] * 4), w16, None, 1, 0, d, c)
+                return F.silu(F.batch_norm(y, mean, var, scale, shift, False, 0.0, eps))
+
+            row = kernel_row(DILATED, lambda: dw_dilated_bn_silu_nhwc(x, p, d),
+                             lambda: dw_dilated_bn_silu_nhwc_plain(x, p, d), 2e-2,
+                             library=stock, library_tol=5e-2)
+            pixels = n * hw * hw
+            row.update(shape=f"[{n},{c},{hw},{hw}] k{k}", blocks=blocks,
+                       bytes=2 * 2 * pixels * c + 2 * k * k * c + 4 * c,
+                       ops=pixels * c * (2 * k * k + 5))
+            rows.append(row)
+            del x, p, w16
+    return rows
 
 ZOO = ("segnet", "unet", "unet_basic", "enhanced_unet_basic", "fcn", "fcn_basic",
        "pspnet", "pspnet_basic", "linknet", "linknet_basic")
@@ -3655,6 +3727,7 @@ def main(argv=None) -> int:
     reset(counters)
     with torch.no_grad():
         rows = dw_variants.main() + mbconv_instr.main()
+        dilated = dilated_rows(dev)
         bench_mbconv = dict(mbconv.LAUNCHES)          # B2's passes and its full block
         stages = []                                   # B1's cases, counted one by one
         for case in proto.CASES:
@@ -3737,6 +3810,32 @@ def main(argv=None) -> int:
             wall_ms=row["wall_ms"], plain_ms=row["plain_ms"], bound_ms=b, bound_by=kind,
             library_ms=None if key == "mbconv_proto" else row["library_ms"],
             **ratio, **{k: row[k] for k in ("yardstick_ms",) if k in row}))
+    # the dilated kernel over a tiled request: each shape's times and work
+    # times its launches there
+    for r in dilated:
+        b, kind = bound(r["bytes"], r["ops"], "fp32")
+        print(f"{DILATED} {r['shape']} d2 bf16, {r['blocks']} a request: rel err "
+              f"{r['rel_err']:.3e} (tol 2e-2), against the stock sequence "
+              f"{r['library_rel_err']:.3e} (tol 5e-2); kernel {r['ms']:.4f} ms (unheld "
+              f"{r['wall_ms']:.4f}), plain {r['plain_ms']:.4f}, stock sequence "
+              f"{r['library_ms']:.4f}, bound {b:.4f} ({kind})")
+    check(sum(r["blocks"] for r in dilated) == DILATED_A_REQUEST,
+          f"{DILATED_A_REQUEST} dilated launches a tiled request")
+    total = {key: sum(r[key] * r["blocks"] for r in dilated)
+             for key in ("ms", "wall_ms", "plain_ms", "library_ms", "bytes", "ops")}
+    b, kind = bound(total["bytes"], total["ops"], "fp32")
+    what = (f"a tiled 2048^2 request's {DILATED_A_REQUEST} launches ([75,C,32,32], "
+            f"[25,C,24,24], [25,C,40,40]; C 960 and 1632 k5, 1632 and 2688 k3; d2 bf16)")
+    print(f"{DILATED} {what}: kernel {total['ms']:.4f} ms (unheld {total['wall_ms']:.4f}), "
+          f"plain {total['plain_ms']:.4f}, stock sequence {total['library_ms']:.4f}, bound "
+          f"{b:.4f} ({kind}), {total['ms'] / b:.2f} times the bound")
+    results[DILATED] = dict(
+        shape=what, max_abs_err=max(r["max_abs_err"] for r in dilated), ms=total["ms"],
+        wall_ms=total["wall_ms"], plain_ms=total["plain_ms"], bound_ms=b, bound_by=kind,
+        library_ms=total["library_ms"],
+        request_shapes=[{k: r[k] for k in ("shape", "blocks", "rel_err", "library_rel_err",
+                                           "ms", "plain_ms", "library_ms")}
+                        for r in dilated])
     # B2's passes beside the library's channels_last block (several calls,
     # both passes and the gate) on the bench's values: its seeded parameters
     # and input, drawn again in the same order
@@ -3807,18 +3906,20 @@ def main(argv=None) -> int:
         counts = [int((masks == c).sum()) for c in range(3)]
         classes_seen |= {c for c in range(3) if counts[c]}
         print(f"request: 2x512^2 TTA, {ms:.1f} ms, classes {counts}")
-    launches = {**conv_fused.LAUNCHES, **mbconv.LAUNCHES}
+    launches = {**conv_fused.LAUNCHES, **mbconv.LAUNCHES, **depthwise.LAUNCHES}
     print(f"slice: request ms {[round(t, 1) for t in times]}, CUDA-event span ms "
           f"{[round(t, 1) for t in served['span_ms']]}, peak memory {served['peak']} bytes, "
           f"launches {json.dumps(launches)}, K2 weight packs per request {served['packs']}, "
           f"K1 weight folds per request {folds}, forwards {served['forwards'][-1]}")
     check(len(classes_seen) >= 2, f"the cascade decided only {classes_seen}")
     serving = ("conv3x3_bn_act_wgmma", "conv3x3_bn_act_smallc", "mbconv_nhwc_pass1",
-               "mbconv_nhwc_pass2")
+               "mbconv_nhwc_pass2", DILATED)
     for name in serving:
         check(launches[name] > 0, f"kernel {name} was not launched by the serving path")
-    off_path = {k: v for k, v in {**launches, **depthwise.LAUNCHES,
-                                  **copy_k.LAUNCHES}.items() if k not in serving}
+    check(all(run[DILATED] == DILATED_A_REQUEST for run in served["runs"]),
+          f"{DILATED_A_REQUEST} dilated depthwise launches a request: "
+          f"{[run[DILATED] for run in served['runs']]}")
+    off_path = {k: v for k, v in {**launches, **copy_k.LAUNCHES}.items() if k not in serving}
     check(not any(off_path.values()), f"the serving path launched {off_path}")
     check(launches["mbconv_pass1"] == launches["mbconv_pass2"] == 0,
           f"the bf16 request launched no nchw kernel: {launches}")
@@ -3982,6 +4083,8 @@ def main(argv=None) -> int:
           f"the whole grid in one chunk: the trio and two scales ({tiled_run['forwards'][-1]})")
     for name in serving:
         check(tiled_launches[name] > 0, f"the tiled path launched {name}")
+    check(tiled_launches[DILATED] == DILATED_A_REQUEST,
+          f"the tiled path launched {DILATED} {tiled_launches[DILATED]} times a request")
     tiled_off = {k: v for k, v in tiled_launches.items() if k not in serving}
     check(not any(tiled_off.values()), f"the tiled path launched {tiled_off}")
     tiled_groups = profile_run(lambda: tiled.predict_semantic_mask(micrograph),
@@ -4306,6 +4409,9 @@ def main(argv=None) -> int:
                          "benchmarks/pallas_mbconv_instr.py:81"),
         "copy": ("enhanced_unet_tpu_torch/csrc/copy.cu",
                  "benchmarks/pallas_mbconv_instr.py:76/:117"),
+        # no Pallas kernel: the JAX package leaves this conv to XLA
+        DILATED: ("enhanced_unet_tpu_torch/csrc/depthwise.cu",
+                  "none (XLA: enhanced_unet_tpu/models/encoders.py:181)"),
     }
     # launches, each from the run whose time and shape the entry reports:
     # the serving run's for its kernels, the benches' (3b) for theirs (B1:
@@ -4313,12 +4419,15 @@ def main(argv=None) -> int:
     # 3) for K2's mma variant, phase 3's own cases for K1's
     # `nhwc_expand` kernels (the bf16 expand block) and `nchw` ones (the
     # fp32 block), phase 9c's spatial flagship at world size 1 for K1's
-    # windowed `nhwc` pass 1 and 9c's own check for the fp32 windowed one
+    # windowed `nhwc` pass 1 and 9c's own check for the fp32 windowed one,
+    # and a tiled request's (4e) for the dilated kernel, whose entry sums
+    # that request's shapes
     path_launches = {**launches, **bench_launches, "conv3x3_bn_act_mma": general_launches,
                      **spatial["launches"],
                      **{k: case_launches["nhwc_expand"][k]
                         for k in ("mbconv_nhwc_expand_pass1", "mbconv_nhwc_expand_pass2")},
-                     **{k: case_launches["nchw"][k] for k in ("mbconv_pass1", "mbconv_pass2")}}
+                     **{k: case_launches["nchw"][k] for k in ("mbconv_pass1", "mbconv_pass2")},
+                     DILATED: tiled_launches[DILATED]}
     # what the spatial flagship's call at world size 1 (9c) launched of the
     # serving kernels
     spatial_kernels = ("conv3x3_bn_act_wgmma", "conv3x3_bn_act_smallc", "mbconv_nhwc_pass2")
@@ -4364,7 +4473,8 @@ def main(argv=None) -> int:
                                 for row in mesh_rows[name]]}
                            if name in tp_kernels else {}),
                         **{k: r[k] for k in ("library_conv_ms", "library_block_ms", "nchw_ms",
-                                             "yardstick_ms", "copy_ratio", "bf16_weights_ms")
+                                             "yardstick_ms", "copy_ratio", "bf16_weights_ms",
+                                             "request_shapes")
                            if k in r},
                         "shape": r["shape"]})
     print(json.dumps({"kernels": kernels}))

@@ -221,3 +221,309 @@ extern "C" int dw_rows_silu(const void* x, const void* w, const void* b,
                             void* stream) {
   return launch<true>(x, w, b, out, N, C, H, W, bh, stream);
 }
+
+// ---------------------------------------------------------------------------
+// dw_dilated_bn_silu_nhwc: out = SiLU(depthwise k x k (k 3 or 5), stride 1,
+// dilation d, zero padding d * (k / 2), of x with BN folded into the weights,
+// + fp32 shift), one cast, on NHWC memory (channels_last tensors).  It serves
+// the eval-mode dilated MBConv blocks of an EfficientNet at output stride 16
+// (the DeepLab encoder's stages 5-6), where cuDNN's grouped direct kernel ran
+// about 50 times off the bytes bound below, between NHWC<->NCHW transforms.
+// It replaces no Pallas kernel: the JAX package leaves these convs to XLA.
+//
+// What bounds it on the H100: bytes.  k5 does 50 operations an element on 4
+// bytes moved in bf16 (x read once, the output written once), against the
+// card's fp32 CUDA-core ridge of about 20 operations a byte: at a tiled
+// request's 30 launches 8.77 GB, 2.62 ms at 3.35 TB/s.  The design keeps
+// every input element to one read from device memory and every output
+// element to one write:
+// - A block takes one image, a group of GROUP_BYTES of channels (32 bf16 or
+//   16 fp32) and a band of BH output rows by BW columns (the whole width of
+//   the serving maps, 24-40).  It copies its input rows plus a halo of
+//   d * (k / 2) rows and columns into shared memory by 16-byte cp.async, the
+//   copies outside the image zero-filled: so the padding costs no device
+//   memory, and a map smaller than its halo (3 x 3 at d 2, k 5) works.  The
+//   band height fills a shared-memory budget (SMEM), balanced over the map.
+//   Bands are the fastest grid index, so the bands of one channel group run
+//   together and their shared halo rows come from L2.
+// - Its weights, [k, k, C] in the compute dtype, are widened to fp32 in
+//   shared memory once a block; the shift is fp32.
+// - A thread takes V = 4 channels (8 bytes of bf16, 16 of fp32) of a run of
+//   TR outputs of one row that lie d columns apart: with dilation d the taps
+//   of such a run read every d-th column, so its k column taps of a tap row
+//   share TR + k - 1 loads from shared memory (reused from registers), not
+//   TR * k.  Neighbouring threads take neighbouring channels, so a
+//   half-warp's loads are 128 contiguous bytes of shared memory (no bank
+//   conflict) and the stores coalesce.  TR (4, 5, 6 or 8) is picked by the
+//   host from the band's width (run_cost).
+// - fp32 sums on CUDA cores; the epilogue adds the shift, takes the fast
+//   SiLU and casts once.
+// A block loads, waits and then computes, so the load of one block hides
+// behind the arithmetic of others: the three constants are set for three
+// blocks an SM (at most 85 registers a thread, 72 KB of shared memory each).
+// With 8 bf16 channels a thread, k5 needed 138 registers (one block an SM)
+// and a request's 30 launches took 7.31 ms; with 4, 5.59 ms (2.14 times the
+// bound on an H100), the fastest of seven settings of the three constants
+// (group bytes 32-128, 48-96 KB, 2-4 blocks an SM).
+// Channel counts that are not a multiple of 16 bytes and tensors that do
+// not start 16-byte aligned take the same tiles with element-wise copies and
+// V = 1 (a second instantiation, chosen by shape and alignment alone).
+namespace {
+
+constexpr int DD_NT = 256;          // threads a block
+constexpr int GROUP_BYTES = 64;     // bytes of channels a block takes at a pixel
+constexpr int SMEM = 72 * 1024;     // a block's budget of shared memory
+constexpr int MIN_BLOCKS = 3;       // blocks an SM the registers must allow
+
+__device__ __forceinline__ float widen(uint16_t v) { return __uint_as_float((uint32_t)v << 16); }
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ void narrow(uint16_t* p, float v) {
+  *p = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+__device__ __forceinline__ void narrow(float* p, float v) { *p = v; }
+
+// V values of T at p as fp32 (one 8- or 16-byte load where V > 1).
+template <typename T, int V>
+__device__ __forceinline__ void load_f(const T* p, float (&f)[V]) {
+  if constexpr (V > 1) {
+    constexpr int WORDS = V * (int)sizeof(T) / 4;
+    uint32_t q[WORDS];
+    if constexpr (WORDS == 4) {
+      const uint4 u = *reinterpret_cast<const uint4*>(p);
+      q[0] = u.x, q[1] = u.y, q[2] = u.z, q[3] = u.w;
+    } else {
+      const uint2 u = *reinterpret_cast<const uint2*>(p);
+      q[0] = u.x, q[1] = u.y;
+    }
+#pragma unroll
+    for (int i = 0; i < WORDS; ++i) {
+      if constexpr (sizeof(T) == 2) {
+        f[2 * i] = mbconv::lo_f(q[i]);
+        f[2 * i + 1] = mbconv::hi_f(q[i]);
+      } else {
+        f[i] = __uint_as_float(q[i]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) f[i] = widen(p[i]);
+  }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store_f(T* p, const float (&f)[V]) {
+  if constexpr (V > 1 && sizeof(T) == 2) {
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(mbconv::pack2(f[0], f[1]), mbconv::pack2(f[2], f[3]));
+  } else if constexpr (V > 1) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                                              __float_as_uint(f[2]), __float_as_uint(f[3]));
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) narrow(p + i, f[i]);
+  }
+}
+
+// grid: x the (row band, column band) pairs, bands fastest; y the channel
+// groups; z the images.  Shared memory: the fp32 weights [k * k][GC], then
+// the tile [TH][TWS][GC] of T.  T: uint16_t (bf16 bits) or float; V 4 or 1.
+template <typename T, int K, int V, int TR>
+__global__ void __launch_bounds__(DD_NT, MIN_BLOCKS)
+dw_dilated_nhwc_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                       const float* __restrict__ shift, T* __restrict__ out, int H, int W,
+                       int C, int d, int BH, int BW, int col_bands, int runs, int TWS) {
+  constexpr int GC = GROUP_BYTES / (int)sizeof(T);  // channels a block
+  constexpr int GT = GC / V;                        // threads a pixel
+  static_assert(V == 4 || V == 1, "4 channels a thread, or 1 on the element-wise path");
+  extern __shared__ uint4 dd_smem[];
+  float* ws = reinterpret_cast<float*>(dd_smem);
+  T* tile = reinterpret_cast<T*>(ws + K * K * GC);
+  const int pad = d * (K / 2);
+  const int TH = BH + 2 * pad;
+  const int h0 = (blockIdx.x / col_bands) * BH, w0 = (blockIdx.x % col_bands) * BW;
+  const int c0 = blockIdx.y * GC;
+  const size_t img = (size_t)blockIdx.z * H * W * C;
+  const T* xn = x + img;
+
+  for (int i = threadIdx.x; i < K * K * GC; i += DD_NT) {
+    const int tap = i / GC, c = c0 + i % GC;
+    ws[i] = c < C ? widen(w[(size_t)tap * C + c]) : 0.f;
+  }
+  // the tile: image rows h0 - pad ..., columns w0 - pad ..., zero outside
+  if constexpr (V > 1) {
+    constexpr int LV = 16 / (int)sizeof(T);         // channels a 16-byte copy
+    constexpr int LT = GC / LV;                     // copies a pixel
+    const int total = TH * TWS * LT;
+    for (int i = threadIdx.x; i < total; i += DD_NT) {
+      const int t = i % LT, pix = i / LT;
+      const int gy = h0 - pad + pix / TWS, gx = w0 - pad + pix % TWS, c = c0 + t * LV;
+      const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W && c < C;
+      const T* src = in ? xn + ((size_t)gy * W + gx) * C + c : x;
+      mbconv::cp_async16(mbconv::smem_u32(tile + (size_t)pix * GC + t * LV), src, in ? 16 : 0);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  } else {
+    const int total = TH * TWS * GC;
+    for (int i = threadIdx.x; i < total; i += DD_NT) {
+      const int cc = i % GC, pix = i / GC;
+      const int gy = h0 - pad + pix / TWS, gx = w0 - pad + pix % TWS, c = c0 + cc;
+      const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W && c < C;
+      tile[i] = in ? xn[((size_t)gy * W + gx) * C + c] : T(0);
+    }
+  }
+  __syncthreads();
+
+  // item: (band row, parity r, run q, channel vector t), t fastest; outputs
+  // at band columns r + d * (q * TR + j), j < TR; input m of a tap row at
+  // tile column r + d * (q * TR + m), m < TR + K - 1 (< TWS by the host)
+  const int items = BH * d * runs * GT;
+  for (int it = threadIdx.x; it < items; it += DD_NT) {
+    const int t = it % GT;
+    int rest = it / GT;
+    const int q = rest % runs;
+    rest /= runs;
+    const int r = rest % d, yb = rest / d;
+    const int xb0 = r + d * q * TR, c = c0 + t * V;
+    if (h0 + yb >= H || xb0 >= BW || w0 + xb0 >= W || c >= C) continue;
+    float acc[TR][V];
+#pragma unroll
+    for (int j = 0; j < TR; ++j)
+#pragma unroll
+      for (int i = 0; i < V; ++i) acc[j][i] = 0.f;
+#pragma unroll
+    for (int ky = 0; ky < K; ++ky) {
+      float wk[K][V];
+#pragma unroll
+      for (int kx = 0; kx < K; ++kx) {
+        const float* src = ws + (ky * K + kx) * GC + t * V;
+        if constexpr (V == 4) {
+          const float4 v4 = *reinterpret_cast<const float4*>(src);
+          wk[kx][0] = v4.x, wk[kx][1] = v4.y, wk[kx][2] = v4.z, wk[kx][3] = v4.w;
+        } else {
+          wk[kx][0] = src[0];
+        }
+      }
+      const T* row = tile + ((size_t)(yb + ky * d) * TWS + r + d * q * TR) * GC + t * V;
+#pragma unroll
+      for (int m = 0; m < TR + K - 1; ++m) {
+        float v[V];
+        load_f<T, V>(row + (size_t)m * d * GC, v);
+#pragma unroll
+        for (int kx = 0; kx < K; ++kx) {
+          const int j = m - kx;
+          if (j >= 0 && j < TR) {
+#pragma unroll
+            for (int i = 0; i < V; ++i) acc[j][i] = fmaf(v[i], wk[kx][i], acc[j][i]);
+          }
+        }
+      }
+    }
+    float sh[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) sh[i] = shift[c + i];
+    T* op = out + img + ((size_t)(h0 + yb) * W + w0 + xb0) * C + c;
+#pragma unroll
+    for (int j = 0; j < TR; ++j) {
+      if (xb0 + d * j >= BW || w0 + xb0 + d * j >= W) break;
+      float o[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) o[i] = mbconv::silu(acc[j][i] + sh[i]);
+      store_f<T, V>(op + (size_t)j * d * C, o);
+    }
+  }
+}
+
+// Instructions a channel vector of a band row costs at run length tr: the
+// runs, each of k tap rows of tr + k - 1 loads (each widened) and tr * k
+// FMAs a channel, plus its k weight loads.
+long long run_cost(int p, int tr, int k, int v) {
+  const long long runs = (p + tr - 1) / tr;
+  return runs * ((long long)(tr + k - 1) * (1 + v) + k * ((v + 3) / 4) + (long long)tr * k * v);
+}
+
+// A launch's geometry: band width bw, run length tr, runs a parity, the
+// tile's width tws and its rows bh (0 where a band of one row does not fit).
+struct Plan {
+  int bw, tr, runs, tws, bh;
+};
+
+Plan plan(int H, int W, int k, int d, int v, int elem_bytes, bool vec) {
+  const int gc = GROUP_BYTES / elem_bytes;
+  const int pad = d * (k / 2);
+  // the serving maps (24-40 columns) take their whole width, wider maps
+  // bands of 32 columns, fewer where the tile would not fit
+  Plan pl{W <= 48 ? W : 32, 4, 0, 0, 0};
+  for (;; pl.bw = (pl.bw + 1) / 2) {
+    const int p = (pl.bw + d - 1) / d;
+    pl.tr = 4;
+    const int lengths[] = {8, 6, 5};
+    if (vec)
+      for (int tr : lengths)
+        if (run_cost(p, tr, k, v) < run_cost(p, pl.tr, k, v)) pl.tr = tr;
+    pl.runs = (p + pl.tr - 1) / pl.tr;
+    pl.tws = d * (pl.runs * pl.tr + k - 1);
+    const long long wbytes = (long long)k * k * gc * 4;
+    const long long fit = (SMEM - wbytes) / ((long long)pl.tws * GROUP_BYTES) - 2 * pad;
+    if (fit >= 1) {
+      const int bands = (int)((H + fit - 1) / fit);
+      pl.bh = (H + bands - 1) / bands;
+      return pl;
+    }
+    if (pl.bw == 1) return pl;
+  }
+}
+
+template <typename T, int K, int V, int TR>
+int launch_dd(const void* x, const void* w, const void* shift, void* out, int N, int H,
+              int W, int C, int d, const Plan& pl, void* stream) {
+  constexpr int GC = GROUP_BYTES / (int)sizeof(T);
+  const int pad = d * (K / 2);
+  const size_t smem = (size_t)K * K * GC * sizeof(float) +
+                      (size_t)(pl.bh + 2 * pad) * pl.tws * GROUP_BYTES;
+  const int col_bands = (W + pl.bw - 1) / pl.bw;
+  const int bands = (H + pl.bh - 1) / pl.bh;
+  auto kernel = dw_dilated_nhwc_kernel<T, K, V, TR>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((unsigned)((long long)bands * col_bands), (unsigned)((C + GC - 1) / GC),
+                  (unsigned)N);
+  kernel<<<grid, DD_NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const float*>(shift),
+      static_cast<T*>(out), H, W, C, d, pl.bh, pl.bw, col_bands, pl.runs, pl.tws);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int K>
+int dispatch_dd(const void* x, const void* w, const void* shift, void* out, int N, int H,
+                int W, int C, int d, void* stream) {
+  constexpr int VV = 4;                      // channels a thread on the vector path
+  const bool vec = C % (16 / (int)sizeof(T)) == 0 &&
+                   ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  const Plan pl = plan(H, W, K, d, vec ? VV : 1, (int)sizeof(T), vec);
+  if (pl.bh < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (!vec) return launch_dd<T, K, 1, 4>(x, w, shift, out, N, H, W, C, d, pl, stream);
+  switch (pl.tr) {
+    case 4: return launch_dd<T, K, VV, 4>(x, w, shift, out, N, H, W, C, d, pl, stream);
+    case 5: return launch_dd<T, K, VV, 5>(x, w, shift, out, N, H, W, C, d, pl, stream);
+    case 6: return launch_dd<T, K, VV, 6>(x, w, shift, out, N, H, W, C, d, pl, stream);
+    default: return launch_dd<T, K, VV, 8>(x, w, shift, out, N, H, W, C, d, pl, stream);
+  }
+}
+
+}  // namespace
+
+// x, out [N,H,W,C] (NHWC memory); w [k,k,C] in x's dtype (BN folded);
+// shift [C] fp32.  k 3 or 5, d >= 1, fp32 1 for float tensors, 0 for bf16.
+// N at most 65,535.
+extern "C" int dw_dilated_bn_silu_nhwc(const void* x, const void* w, const void* shift,
+                                       void* out, int N, int H, int W, int C, int k, int d,
+                                       int fp32, void* stream) {
+  if (N < 1 || N > 65535 || H < 1 || W < 1 || C < 1 || d < 1 || (k != 3 && k != 5))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (fp32)
+    return k == 3 ? dispatch_dd<float, 3>(x, w, shift, out, N, H, W, C, d, stream)
+                  : dispatch_dd<float, 5>(x, w, shift, out, N, H, W, C, d, stream);
+  return k == 3 ? dispatch_dd<uint16_t, 3>(x, w, shift, out, N, H, W, C, d, stream)
+                : dispatch_dd<uint16_t, 5>(x, w, shift, out, N, H, W, C, d, stream);
+}

@@ -15,8 +15,14 @@ ResNet convs pad symmetrically (`k // 2`, torchvision's); their eval-mode
 Stride-2 convs use TF SAME padding (asymmetric: (0, 1) for k3 and (1, 2)
 for k5 on even input).  At output stride 16, stages 5-6 keep stride 1 and
 dilate their depthwise convs by 2, padded symmetrically.  In eval mode the
-stride-1 3x3 blocks of stage 0 run the fused MBConv kernel; train mode runs
-every block on the stock path, with stochastic depth on the residual blocks.
+stride-1 3x3 blocks of stage 0 run the fused MBConv kernel, and the dilated
+blocks' depthwise conv, BN and SiLU run as one kernel on channels_last
+tensors (`ops/kernels/depthwise.py` `dw_dilated_bn_silu_nhwc`, the padding
+inside it, BN folded into cached weights); nothing on the serving path calls
+the older NCHW depthwise kernels of that module.  Train mode runs every block
+on the stock path, with stochastic depth on the residual blocks; so do
+blocks under a partitioned run (`ops.partition`), whose modes intercept the
+stock convs and pads for their halos and slices.
 """
 
 from __future__ import annotations
@@ -37,6 +43,11 @@ from enhanced_unet_tpu_torch.models.blocks import (
     row_split,
 )
 from enhanced_unet_tpu_torch.ops import partition
+from enhanced_unet_tpu_torch.ops.kernels.depthwise import (
+    DwFolded,
+    dw_dilated_bn_silu_nhwc,
+    fold_dw_bn,
+)
 from enhanced_unet_tpu_torch.ops.kernels.mbconv import (
     MBConvWeights,
     fold_mbconv_weights,
@@ -238,9 +249,12 @@ class MBConvBlock(nn.Module):
     """Mobile inverted bottleneck with squeeze-excitation.
 
     `fused=True` (stride 1, kernel 3, undilated) runs the two-pass fused
-    MBConv kernel in eval mode; otherwise, and always in train mode, the
-    stock PyTorch path runs.  `drop_rate` is the stochastic-depth rate of a
-    residual block in train mode."""
+    MBConv kernel in eval mode.  A dilated block in eval mode, outside a
+    partitioned run, runs its depthwise conv, BN and SiLU as one kernel
+    (`dw_dilated_bn_silu_nhwc`, weights from `dw_fold`); the expand and
+    project convs and the SE gate stay stock.  Otherwise, and always in
+    train mode, the stock PyTorch path runs.  `drop_rate` is the
+    stochastic-depth rate of a residual block in train mode."""
 
     def __init__(self, cin: int, cout: int, expand_ratio: int, stride: int,
                  kernel: int, dilation: int = 1, se_ratio: float = 0.25,
@@ -293,25 +307,44 @@ class MBConvBlock(nn.Module):
         if sliced and whole is None:
             raise ValueError(f"MBConvBlock {self.cin}->{self.cout} holds channel slices of "
                              "its weights: fold it from its weights gathered whole")
-        key = (tuple((t.data_ptr(), t._version) for t in tensors), self.dtype,
-               self._depthwise_conv.weight.device)
-        cached = self.__dict__.get("_folded")
-        if not sliced and cached is not None and cached[0] == key:
-            return cached[1]
-        count("kernels.k1_fold")
         w = whole if sliced else (lambda t: t)
+        return self._cached("_folded", tensors, "kernels.k1_fold", lambda: fold_mbconv_weights(
+            w(self._expand_conv.weight) if expand else None,
+            stats(self._bn0) if expand else None,
+            w(self._depthwise_conv.weight), stats(self._bn1),
+            (w(self._se_reduce.weight), self._se_reduce.bias),
+            (w(self._se_expand.weight), self._se_expand.bias),
+            w(self._project_conv.weight), stats(self._bn2),
+            eps=_BN_EPS, dtype=self.dtype), keep=not sliced)
+
+    def dw_fold(self) -> DwFolded:
+        """BN1 folded into the depthwise weights for the dilated kernel, in
+        the compute dtype on the parameters' device, kept on the module and
+        folded again as `fold`'s are; each folding counts `kernels.dw_fold`
+        (`utils.profiler`)."""
+        bn = self._bn1
+        tensors = [self._depthwise_conv.weight, bn.weight, bn.bias, bn.running_mean,
+                   bn.running_var]
+        return self._cached("_dw_folded", tensors, "kernels.dw_fold", lambda: fold_dw_bn(
+            tensors[0], tensors[1:], _BN_EPS, self.dtype))
+
+    def _cached(self, slot: str, tensors, counter: str, make, keep: bool = True):
+        """`make()` under no autograd, kept on the module in `__dict__[slot]`
+        and keyed by each tensor's `(data_ptr, _version)`, the compute dtype
+        and the first tensor's device; made again when the key changes.
+        Each making counts `counter` (`utils.profiler`); `keep=False` makes
+        it on every call and keeps nothing."""
+        key = (tuple((t.data_ptr(), t._version) for t in tensors), self.dtype,
+               tensors[0].device)
+        cached = self.__dict__.get(slot)
+        if keep and cached is not None and cached[0] == key:
+            return cached[1]
+        count(counter)
         with torch.inference_mode(False), torch.no_grad():
-            folded = fold_mbconv_weights(
-                w(self._expand_conv.weight) if expand else None,
-                stats(self._bn0) if expand else None,
-                w(self._depthwise_conv.weight), stats(self._bn1),
-                (w(self._se_reduce.weight), self._se_reduce.bias),
-                (w(self._se_expand.weight), self._se_expand.bias),
-                w(self._project_conv.weight), stats(self._bn2),
-                eps=_BN_EPS, dtype=self.dtype)
-        if not sliced:
-            self.__dict__["_folded"] = (key, folded)
-        return folded
+            made = make()
+        if keep:
+            self.__dict__[slot] = (key, made)
+        return made
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
         if self.fused and not self.training:
@@ -328,17 +361,25 @@ class MBConvBlock(nn.Module):
 
             part = partition.active()   # a band of rows or a channel slice
             return run(x, self.fold()) if part is None else part.mbconv(x, self, run)
+        # the dilated kernel has no backward and no band- or slice-aware call
+        dilated = self.dilation > 1 and not self.training and partition.active() is None
+        if dilated:
+            refuse_autograd(f"dilated MBConvBlock {self.cin}->{self.cout}",
+                            self.parameters())
         dt = self.dtype
         y = x
         if self.expand_ratio != 1:
             y = F.silu(batch_norm(conv(y, self._expand_conv, dt), self._bn0))
-        if self.dilation > 1:
-            p = (self.kernel // 2) * self.dilation
-            y = F.pad(y, [p, p, p, p])
+        if dilated:
+            y = dw_dilated_bn_silu_nhwc(y.to(dt), self.dw_fold(), self.dilation)
         else:
-            y = tf_same_pad(y, self.kernel, self.stride)
-        y = F.silu(batch_norm(conv(y, self._depthwise_conv, dt, padding=0),
-                              self._bn1))
+            if self.dilation > 1:
+                p = (self.kernel // 2) * self.dilation
+                y = F.pad(y, [p, p, p, p])
+            else:
+                y = tf_same_pad(y, self.kernel, self.stride)
+            y = F.silu(batch_norm(conv(y, self._depthwise_conv, dt, padding=0),
+                                  self._bn1))
         s = y.mean(dim=(2, 3), keepdim=True)
         s = conv(F.silu(conv(s, self._se_reduce, dt)), self._se_expand, dt)
         y = y * torch.sigmoid(s)

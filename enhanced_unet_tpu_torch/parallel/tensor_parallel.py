@@ -225,9 +225,9 @@ def shard_params_tp(model: nn.Module, mesh: Mesh2D, min_channels: int = 128) -> 
                              requires_grad=w.requires_grad)
             setattr(p, partition.SPLIT, split)
             m.weight = p
-    for m in model.modules():       # K2's packs and K1's folds of the whole weights
-        m.__dict__.pop("_packed_conv3x3", None)
-        m.__dict__.pop("_folded", None)
+    for m in model.modules():       # the packs and folds of the whole weights
+        for cache in ("_packed_conv3x3", "_folded", "_dw_folded"):
+            m.__dict__.pop(cache, None)
     return model
 
 

@@ -495,7 +495,9 @@ def test_dw_kernels_take_any_start(cuda, offset):
     before = dict(depthwise.LAUNCHES)
     got = (depthwise.dw3x3_bias_silu(x, wdw, bdw), depthwise.dw_rows_silu(x, wdw, bdw, 8))
     torch.cuda.synchronize()
-    assert depthwise.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    # each of the two kernels once, and no other (the dilated kernel's count stays)
+    kernels = ("dw3x3_bias_silu", "dw_rows_silu")
+    assert depthwise.LAUNCHES == {**before, **{k: before[k] + 1 for k in kernels}}
     assert _rel(got[0], depthwise.dw3x3_bias_silu_plain(x, wdw, bdw)) <= 2e-2
     assert _rel(got[1], depthwise.dw_rows_silu_plain(x, wdw, bdw, 8)) <= 2e-2
 
@@ -1282,3 +1284,92 @@ def test_a_traced_request_after_a_weight_swap_rebuilds_and_launches(cuda):
     (root,) = [s for s in profiler.spans() if s["parent"] is None]
     forwards = [s for s in profiler.spans() if s["name"] == "model.forward"]
     assert 0 < sum(f["device_ms"] for f in forwards) <= root["device_ms"]
+
+
+def _dw_dilated_case(cuda, dtype, n, c, hw, k, seed, d=2):
+    from enhanced_unet_tpu_torch.ops.kernels.depthwise import DwFolded
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(n, c, hw, hw + 1, generator=g, device=cuda).to(dtype)
+    w = (torch.randn(k, k, c, generator=g, device=cuda) * 0.2).to(dtype)
+    return x, DwFolded(w, torch.randn(c, generator=g, device=cuda) * 0.1)
+
+
+def _dw_dilated_check(x, p, d=2):
+    from enhanced_unet_tpu_torch.ops.kernels import depthwise
+
+    before = depthwise.LAUNCHES["dw_dilated_bn_silu_nhwc"]
+    got = depthwise.dw_dilated_bn_silu_nhwc(x, p, d)
+    torch.cuda.synchronize()
+    assert depthwise.LAUNCHES["dw_dilated_bn_silu_nhwc"] == before + 1
+    want = depthwise.dw_dilated_bn_silu_nhwc_plain(x, p, d)
+    assert got.dtype == x.dtype and got.shape == want.shape
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert _rel(got, want) <= _tol(x.dtype)
+
+
+# the serving widths of B4's dilated stages (960 and 1632 at k5, 1632 and
+# 2688 at k3) on the stride-16 maps of a tiled request (32², 24², 40²)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hw", [32, 24, 40])
+@pytest.mark.parametrize("c,k", [(960, 5), (1632, 5), (1632, 3), (2688, 3)])
+def test_dw_dilated_kernel_matches_plain_at_the_serving_widths(cuda, dtype, hw, c, k):
+    x, p = _dw_dilated_case(cuda, dtype, 2, c, hw, k, seed=c + hw + k)
+    _dw_dilated_check(x.contiguous(memory_format=torch.channels_last), p)
+
+
+# an odd width (the element-wise path), a width a multiple of 8 but not of
+# the 64-channel group, maps smaller than the halo (3², 5²), one wider than
+# a band (100 columns), dilation 1 and 4, and an NCHW input (copied first)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,c,hw,k,d,layout", [
+    (3, 13, 9, 5, 2, "cl"), (2, 1001, 12, 3, 2, "cl"), (2, 200, 3, 5, 2, "cl"),
+    (1, 72, 5, 3, 2, "cl"), (1, 64, 100, 5, 2, "cl"), (2, 48, 11, 3, 1, "cl"),
+    (1, 40, 20, 5, 4, "cl"), (2, 96, 10, 5, 2, "nchw")])
+def test_dw_dilated_kernel_takes_odd_shapes(cuda, dtype, n, c, hw, k, d, layout):
+    x, p = _dw_dilated_case(cuda, dtype, n, c, hw, k, seed=c * 7 + hw)
+    if layout == "cl":
+        x = x.contiguous(memory_format=torch.channels_last)
+    _dw_dilated_check(x, p, d)
+
+
+@pytest.mark.parametrize("dtype,offset", [(torch.bfloat16, 3), (torch.bfloat16, 8),
+                                          (torch.float32, 1)])
+def test_dw_dilated_kernel_takes_any_start(cuda, dtype, offset):
+    # a channels_last view a few elements into its storage: the element-wise
+    # path where the start is not 16-byte aligned (bf16 3, fp32 1), the
+    # 16-byte one where it is (bf16 8)
+    x, p = _dw_dilated_case(cuda, dtype, 2, 64, 12, 5, seed=offset)
+    flat = torch.empty(x.numel() + offset, device=cuda, dtype=dtype)
+    view = flat[offset:].view(2, 12, 13, 64).permute(0, 3, 1, 2)
+    view.copy_(x)
+    assert view.is_contiguous(memory_format=torch.channels_last)
+    _dw_dilated_check(view, p)
+
+
+def test_a_tiled_request_launches_the_dilated_kernel_30_times(cuda):
+    # the B5/B4 flagship serving a tiled request with TTA: three forwards of
+    # the DeepLab encoder, ten dilated blocks each; after a weight swap the
+    # first request folds each block's weights once, the next none
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from enhanced_unet_tpu_torch.models import get_model
+    from enhanced_unet_tpu_torch.train.evaluator import Evaluator
+    from enhanced_unet_tpu_torch.utils import profiler
+
+    model = get_model("enhanced_unet", device=cuda, seed=2)
+    ev = Evaluator(model, "enhanced_unet", enable_tta=True, device=cuda, verbose=False,
+                   tiled=True, tile=256, overlap=32)
+    img = np.random.default_rng(0).random((1, 384, 400, 3)).astype(np.float32)
+    ev.predict_semantic_masks_tiled(img)
+    ev.update_state({k: v + 0.01 if v.is_floating_point() else v
+                     for k, v in model.state_dict().items()})
+    got = []
+    for _ in range(2):
+        profiler.clear()
+        with profile(activities=[ProfilerActivity.CPU]):
+            ev.predict_semantic_masks_tiled(img)
+        got.append(profiler.counters())
+    assert [c["launches.dw_dilated_bn_silu_nhwc"] for c in got] == [30, 30]
+    assert [c.get("kernels.dw_fold", 0) for c in got] == [10, 0]
