@@ -33,8 +33,9 @@ Phases (any failure exits non-zero):
     request (C 960 and 1632 at k5, 1632 and 2688 at k3, on [75,C,32,32],
     [25,C,24,24] and [25,C,40,40]), each within 2e-2 of max |value| of its
     plain version and 5e-2 of the stock sequence it replaced (`F.pad`,
-    cuDNN's grouped conv, eval BN, SiLU; the library yardstick), its entry
-    the sums over the request's 30 launches; every depthwise, copy and
+    cuDNN's grouped conv, eval BN, SiLU; the library yardstick), and
+    `dw3x3_bias_gelu_nhwc` at the twelve shapes of SegFormer-B5's Mix-FFN
+    (3c: both entries the sums over a request); every depthwise, copy and
     MBConv count must move (B1 stage 0 reaches K1's
     `nhwc` kernels, stage 1 the `nhwc_expand` ones, B2's passes the `nchw`
     ones).  The benches' rows give the kernels' entries (B2's bf16 passes
@@ -45,6 +46,14 @@ Phases (any failure exits non-zero):
     wrapper's cast in every call), and both depthwise kernels on the 2-byte
     path (odd W, a misaligned start) and at W = 520, against their plain
     versions;
+ 3c. the channels_last depthwise kernel's two epilogues summed over a tiled
+    2048^2 request from 3b's rows (`depthwise_entries`): the dilated SiLU
+    instances (30 launches on the flagship) and SegFormer-B5's Mix-FFN GELU
+    instances (`dw3x3_bias_gelu_nhwc`: C 256, 512, 1280 and 2048 on its four
+    stages' maps of the three forwards, 156 launches), each shape within
+    2e-2 of its plain version and 5e-2 of the stock sequence (cuDNN's
+    depthwise conv with bias, then GELU), the GELU instances faster than
+    the stock sequence over the request;
  4. the slice: `get_model("enhanced_unet")` at full width (EfficientNet-B5
     UNet++ + EfficientNet-B4 DeepLabV3+, bf16, seeded random weights) served
     by an `Evaluator` with TTA: three requests of two 512x512 images; every
@@ -99,6 +108,14 @@ Phases (any failure exits non-zero):
     key present and finite, the predicted live/dead counts those of
     `semantic_to_instances` on the masks the card returned, the native host
     ops built and called; the host's ms per image;
+ 4h. SegFormer-B5 at full size served as 4e serves the flagship (one
+    2048x2048 micrograph, tile 512, overlap 64, TTA, the whole grid in one
+    chunk): after a warm-up request every count is set to 0 and one more
+    request served: a [2048,2048] uint8 mask, `dw3x3_bias_gelu_nhwc` (the
+    Mix-FFN's depthwise kernel, D2) launched 156 times and no other counted
+    kernel, its plain version never called, its weights laid out 52 times
+    in the warm-up and never after; D2's `kernels` entry takes its launches
+    from this request;
  5. cross-check: one 256x256 image, one view, bf16 on the card against the
     same weights in fp32 on the CPU (plain PyTorch path); and 4f, the tiled
     path on one 256x448 image (tile 256, overlap 64: two tiles, one view),
@@ -1414,6 +1431,180 @@ def dilated_rows(dev) -> list:
             rows.append(row)
             del x, p, w16
     return rows
+
+# SegFormer-B5's Mix-FFN depthwise (`dw3x3_bias_gelu_nhwc`): (channels, blocks
+# a forward) of its four stages (4x the stage's width, at strides 4 to 32),
+# and (images, tile) of a tiled 2048^2 request's three forwards
+MIXFFN = "dw3x3_bias_gelu_nhwc"
+MIXFFN_A_REQUEST = 156
+MIXFFN_STAGES = ((256, 3), (512, 6), (1280, 40), (2048, 3))
+MIXFFN_FORWARDS = ((75, 512), (25, 384), (25, 640))
+
+
+def mixffn_rows(dev) -> list:
+    """`dw3x3_bias_gelu_nhwc` (bf16, channels_last) at each shape of a tiled
+    SegFormer-B5 request: `microtime.kernel_row` against its plain version
+    (2e-2) and against the stock sequence (cuDNN's depthwise conv with its
+    bias, then the exact GELU, in bf16, which rounds once more: 5e-2), with
+    the launches a request (`blocks`), the bytes (the input read and the
+    output written once, the weights and the shift) and the operations
+    (2 * 9 multiply-adds, then the shift and the GELU ~6) per call."""
+    import torch
+    import torch.nn.functional as F
+
+    from enhanced_unet_tpu_torch.benchmarks.microtime import kernel_row
+    from enhanced_unet_tpu_torch.ops.kernels.depthwise import (
+        dw3x3_bias_gelu_nhwc,
+        dw3x3_bias_gelu_nhwc_plain,
+        fold_dw_bias,
+    )
+
+    rows = []
+    g = torch.Generator(device=dev).manual_seed(0)
+    for n, tile in MIXFFN_FORWARDS:
+        for i, (c, blocks) in enumerate(MIXFFN_STAGES):
+            hw = tile // (4 << i)
+            x = (torch.randn(n, c, hw, hw, generator=g, device=dev) * 0.5).to(
+                torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            w = torch.randn(c, 1, 3, 3, generator=g, device=dev) * 0.2
+            b = torch.randn(c, generator=g, device=dev) * 0.1
+            p = fold_dw_bias(w, b, torch.bfloat16)
+            w16, b16 = w.to(torch.bfloat16), b.to(torch.bfloat16)
+
+            def stock():
+                return F.gelu(F.conv2d(x, w16, b16, 1, 1, 1, c))
+
+            row = kernel_row(MIXFFN, lambda: dw3x3_bias_gelu_nhwc(x, p),
+                             lambda: dw3x3_bias_gelu_nhwc_plain(x, p), 2e-2,
+                             library=stock, library_tol=5e-2)
+            pixels = n * hw * hw
+            row.update(shape=f"[{n},{c},{hw},{hw}]", blocks=blocks,
+                       bytes=2 * 2 * pixels * c + 2 * 9 * c + 4 * c,
+                       ops=pixels * c * (2 * 9 + 6))
+            rows.append(row)
+            del x, p
+    return rows
+
+
+def phase4h_segformer(card: str, counters, dev, **model_kwargs) -> dict:
+    """4h. SegFormer-B5 at full size (`get_model("segformer_b5")`, bf16,
+    seeded random weights; `model_kwargs` resize it for a rehearsal)
+    served by a tiled `Evaluator` with TTA (tile 512, overlap 64, the whole
+    grid in one chunk) on one seeded 2048x2048 micrograph: a warm-up
+    request, then every count set to 0 and one more request.  A
+    [2048,2048] uint8 mask in {0,1,2}; the Mix-FFN's depthwise kernel
+    launched 156 times (52 blocks in each of the three forwards) and no
+    other counted kernel; its plain version never called and its weights
+    laid out 52 times in the warm-up and never after.  Returns the
+    request's launches, wall ms and peak memory.  Callable alone from a
+    driver that has built the kernels: `phase4h_segformer(card, (depthwise.
+    LAUNCHES, conv_fused.LAUNCHES, mbconv.LAUNCHES), torch.device("cuda"))`."""
+    import numpy as np
+    import torch
+
+    from enhanced_unet_tpu_torch.models import get_model, segformer
+    from enhanced_unet_tpu_torch.ops.kernels import depthwise
+    from enhanced_unet_tpu_torch.train.evaluator import Evaluator
+
+    t0 = time.perf_counter()
+    model = get_model("segformer_b5", device=dev, seed=0, **model_kwargs)
+    blocks = sum(model_kwargs.get("depths", (3, 6, 40, 3)))
+    ev = Evaluator(model, "segformer_b5", enable_tta=True, device=dev, tiled=True, tile=TILE,
+                   overlap=TILE_OVERLAP, verbose=False)
+    micrograph = synthetic_images(1, TILED_SIZE, 21)[0]
+    plain_fn, fold_fn = depthwise.dw3x3_bias_gelu_nhwc_plain, segformer.fold_dw_bias
+    plain, folds = [0], []
+
+    def counted_plain(*args):
+        plain[0] += 1
+        return plain_fn(*args)
+
+    def counted_fold(*args):
+        folds[-1] += 1
+        return fold_fn(*args)
+
+    depthwise.dw3x3_bias_gelu_nhwc_plain, segformer.fold_dw_bias = counted_plain, counted_fold
+    try:
+        folds.append(0)
+        ev.predict_semantic_mask(micrograph)            # the warm-up: folds, plans
+        folds.append(0)
+        reset(counters)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        mask = ev.predict_semantic_mask(micrograph)
+        wall = 1e3 * (time.perf_counter() - t1)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        depthwise.dw3x3_bias_gelu_nhwc_plain, segformer.fold_dw_bias = plain_fn, fold_fn
+    launches = {k: v for counter in counters for k, v in counter.items() if v}
+    classes = [int((mask == c).sum()) for c in range(3)]
+    print(f"[{card}] SegFormer-B5 tiled {TILED_SIZE}^2 request (tile {TILE}, overlap "
+          f"{TILE_OVERLAP}, TTA): wall {wall:.1f} ms, peak memory {peak} bytes, launches "
+          f"{json.dumps(launches)}, plain {MIXFFN} calls (both requests) {plain[0]}, folds "
+          f"(warm-up, request) {folds}, classes {classes}; {time.perf_counter() - t0:.1f} s")
+    check(mask.dtype == np.uint8 and mask.shape == (TILED_SIZE, TILED_SIZE)
+          and sum(classes) == mask.size, f"a [{TILED_SIZE},{TILED_SIZE}] uint8 mask in {{0,1,2}}")
+    check(launches == {MIXFFN: 3 * blocks},
+          f"the SegFormer request launched {MIXFFN} {3 * blocks} times and nothing else: "
+          f"{launches}")
+    check(plain[0] == 0, f"the SegFormer request ran {MIXFFN}'s plain version {plain[0]} times")
+    check(folds == [blocks, 0], f"the Mix-FFN weights laid out {blocks} times, then never: "
+          f"{folds}")
+    del ev, model
+    torch.cuda.empty_cache()
+    return {"launches": launches, "wall_ms": wall, "peak": peak}
+
+
+def request_entry(name: str, rows: list, a_request: int, what: str) -> dict:
+    """The entry of a kernel over a tiled request from its rows at each
+    shape (`dilated_rows`, `mixffn_rows`): each shape printed, and the
+    times and work summed over the request's launches (each row's times its
+    `blocks`), which must number `a_request`."""
+    for r in rows:
+        b, kind = bound(r["bytes"], r["ops"], "fp32")
+        print(f"{name} {r['shape']} bf16, {r['blocks']} a request: rel err "
+              f"{r['rel_err']:.3e} (tol 2e-2), against the stock sequence "
+              f"{r['library_rel_err']:.3e} (tol 5e-2); kernel {r['ms']:.4f} ms (unheld "
+              f"{r['wall_ms']:.4f}), plain {r['plain_ms']:.4f}, stock sequence "
+              f"{r['library_ms']:.4f}, bound {b:.4f} ({kind}), {r['ms'] / b:.2f} times")
+    check(sum(r["blocks"] for r in rows) == a_request, f"{a_request} {name} launches a request")
+    total = {key: sum(r[key] * r["blocks"] for r in rows)
+             for key in ("ms", "wall_ms", "plain_ms", "library_ms", "bytes", "ops")}
+    b, kind = bound(total["bytes"], total["ops"], "fp32")
+    print(f"{name} {what}: kernel {total['ms']:.4f} ms (unheld {total['wall_ms']:.4f}), "
+          f"plain {total['plain_ms']:.4f}, stock sequence {total['library_ms']:.4f}, bound "
+          f"{b:.4f} ({kind}), {total['ms'] / b:.2f} times the bound")
+    return dict(
+        shape=what, max_abs_err=max(r["max_abs_err"] for r in rows), ms=total["ms"],
+        wall_ms=total["wall_ms"], plain_ms=total["plain_ms"], bound_ms=b, bound_by=kind,
+        library_ms=total["library_ms"],
+        request_shapes=[{k: r[k] for k in ("shape", "blocks", "rel_err", "library_rel_err",
+                                           "ms", "plain_ms", "library_ms")}
+                        for r in rows])
+
+
+def depthwise_entries(dilated: list, mixffn: list) -> dict:
+    """Phase 3c: the channels_last depthwise kernel's two epilogues over a
+    tiled 2048^2 request, from their rows: the DeepLab encoder's dilated
+    blocks (SiLU, 30 launches on the B5/B4 flagship) and SegFormer-B5's
+    Mix-FFN (GELU, 156 launches), which must beat the stock sequence over
+    the request.  Callable alone: `depthwise_entries(dilated_rows(dev),
+    mixffn_rows(dev))`."""
+    out = {DILATED: request_entry(
+        DILATED, dilated, DILATED_A_REQUEST,
+        f"a tiled 2048^2 request's {DILATED_A_REQUEST} launches ([75,C,32,32], "
+        f"[25,C,24,24], [25,C,40,40]; C 960 and 1632 k5, 1632 and 2688 k3; d2 bf16)"),
+        MIXFFN: request_entry(
+        MIXFFN, mixffn, MIXFFN_A_REQUEST,
+        f"a tiled 2048^2 SegFormer-B5 request's {MIXFFN_A_REQUEST} launches (C 256, 512, "
+        f"1280, 2048 at strides 4-32 of [75,*,512,512], [25,*,384,384], [25,*,640,640]; "
+        f"k3 d1 bf16)")}
+    check(out[MIXFFN]["ms"] < out[MIXFFN]["library_ms"],
+          f"{MIXFFN} beats the stock sequence over a request: {out[MIXFFN]['ms']} ms against "
+          f"{out[MIXFFN]['library_ms']}")
+    return out
+
 
 ZOO = ("segnet", "unet", "unet_basic", "enhanced_unet_basic", "fcn", "fcn_basic",
        "pspnet", "pspnet_basic", "linknet", "linknet_basic")
@@ -3728,6 +3919,7 @@ def main(argv=None) -> int:
     with torch.no_grad():
         rows = dw_variants.main() + mbconv_instr.main()
         dilated = dilated_rows(dev)
+        mixffn = mixffn_rows(dev)
         bench_mbconv = dict(mbconv.LAUNCHES)          # B2's passes and its full block
         stages = []                                   # B1's cases, counted one by one
         for case in proto.CASES:
@@ -3810,32 +4002,8 @@ def main(argv=None) -> int:
             wall_ms=row["wall_ms"], plain_ms=row["plain_ms"], bound_ms=b, bound_by=kind,
             library_ms=None if key == "mbconv_proto" else row["library_ms"],
             **ratio, **{k: row[k] for k in ("yardstick_ms",) if k in row}))
-    # the dilated kernel over a tiled request: each shape's times and work
-    # times its launches there
-    for r in dilated:
-        b, kind = bound(r["bytes"], r["ops"], "fp32")
-        print(f"{DILATED} {r['shape']} d2 bf16, {r['blocks']} a request: rel err "
-              f"{r['rel_err']:.3e} (tol 2e-2), against the stock sequence "
-              f"{r['library_rel_err']:.3e} (tol 5e-2); kernel {r['ms']:.4f} ms (unheld "
-              f"{r['wall_ms']:.4f}), plain {r['plain_ms']:.4f}, stock sequence "
-              f"{r['library_ms']:.4f}, bound {b:.4f} ({kind})")
-    check(sum(r["blocks"] for r in dilated) == DILATED_A_REQUEST,
-          f"{DILATED_A_REQUEST} dilated launches a tiled request")
-    total = {key: sum(r[key] * r["blocks"] for r in dilated)
-             for key in ("ms", "wall_ms", "plain_ms", "library_ms", "bytes", "ops")}
-    b, kind = bound(total["bytes"], total["ops"], "fp32")
-    what = (f"a tiled 2048^2 request's {DILATED_A_REQUEST} launches ([75,C,32,32], "
-            f"[25,C,24,24], [25,C,40,40]; C 960 and 1632 k5, 1632 and 2688 k3; d2 bf16)")
-    print(f"{DILATED} {what}: kernel {total['ms']:.4f} ms (unheld {total['wall_ms']:.4f}), "
-          f"plain {total['plain_ms']:.4f}, stock sequence {total['library_ms']:.4f}, bound "
-          f"{b:.4f} ({kind}), {total['ms'] / b:.2f} times the bound")
-    results[DILATED] = dict(
-        shape=what, max_abs_err=max(r["max_abs_err"] for r in dilated), ms=total["ms"],
-        wall_ms=total["wall_ms"], plain_ms=total["plain_ms"], bound_ms=b, bound_by=kind,
-        library_ms=total["library_ms"],
-        request_shapes=[{k: r[k] for k in ("shape", "blocks", "rel_err", "library_rel_err",
-                                           "ms", "plain_ms", "library_ms")}
-                        for r in dilated])
+    # ---- 3c. the depthwise kernel's two epilogues over a tiled request -----
+    results.update(depthwise_entries(dilated, mixffn))
     # B2's passes beside the library's channels_last block (several calls,
     # both passes and the gate) on the bench's values: its seeded parameters
     # and input, drawn again in the same order
@@ -4196,6 +4364,9 @@ def main(argv=None) -> int:
           "evaluate on the card used the native host ops")
     del ev
 
+    # ---- 4h. SegFormer-B5 served tiled: the Mix-FFN kernel's launches ----
+    segformer_run = phase4h_segformer(card, counters, dev)
+
     # ---- 5. full-width cross-check against the fp32 CPU plain path ------
     # and 4f, the tiled path: one 256 x 448 image, tile 256, overlap 64
     # (two tiles), one view, its tiles' probabilities from the same enhanced
@@ -4412,6 +4583,8 @@ def main(argv=None) -> int:
         # no Pallas kernel: the JAX package leaves this conv to XLA
         DILATED: ("enhanced_unet_tpu_torch/csrc/depthwise.cu",
                   "none (XLA: enhanced_unet_tpu/models/encoders.py:181)"),
+        # no Pallas kernel: the JAX package has no SegFormer
+        MIXFFN: ("enhanced_unet_tpu_torch/csrc/depthwise.cu", "none (no SegFormer in JAX)"),
     }
     # launches, each from the run whose time and shape the entry reports:
     # the serving run's for its kernels, the benches' (3b) for theirs (B1:
@@ -4420,14 +4593,15 @@ def main(argv=None) -> int:
     # `nhwc_expand` kernels (the bf16 expand block) and `nchw` ones (the
     # fp32 block), phase 9c's spatial flagship at world size 1 for K1's
     # windowed `nhwc` pass 1 and 9c's own check for the fp32 windowed one,
-    # and a tiled request's (4e) for the dilated kernel, whose entry sums
-    # that request's shapes
+    # and a tiled request's (4e) for the dilated kernel and SegFormer-B5's
+    # (4h) for the Mix-FFN one, whose entries sum those requests' shapes
     path_launches = {**launches, **bench_launches, "conv3x3_bn_act_mma": general_launches,
                      **spatial["launches"],
                      **{k: case_launches["nhwc_expand"][k]
                         for k in ("mbconv_nhwc_expand_pass1", "mbconv_nhwc_expand_pass2")},
                      **{k: case_launches["nchw"][k] for k in ("mbconv_pass1", "mbconv_pass2")},
-                     DILATED: tiled_launches[DILATED]}
+                     DILATED: tiled_launches[DILATED],
+                     MIXFFN: segformer_run["launches"][MIXFFN]}
     # what the spatial flagship's call at world size 1 (9c) launched of the
     # serving kernels
     spatial_kernels = ("conv3x3_bn_act_wgmma", "conv3x3_bn_act_smallc", "mbconv_nhwc_pass2")

@@ -74,6 +74,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "row_stream.cuh"
 
 namespace {
@@ -268,6 +270,14 @@ extern "C" int dw_rows_silu(const void* x, const void* w, const void* b,
 // Channel counts that are not a multiple of 16 bytes and tensors that do
 // not start 16-byte aligned take the same tiles with element-wise copies and
 // V = 1 (a second instantiation, chosen by shape and alignment alone).
+//
+// dw3x3_bias_gelu_nhwc runs the same body at k 3, dilation 1, with the
+// conv's bias as the shift and exact-erf GELU as the epilogue: SegFormer's
+// Mix-FFN depthwise (models/segformer.py), at 4x the block's width (256 to
+// 2048 channels) on maps of 12 to 160 columns.  Its kernel has a name of
+// its own (dw3x3_gelu_nhwc_kernel), so a trace tells the two apart; the
+// SiLU instances are the same code as before the epilogue became a
+// template parameter.
 namespace {
 
 constexpr int DD_NT = 256;          // threads a block
@@ -324,14 +334,27 @@ __device__ __forceinline__ void store_f(T* p, const float (&f)[V]) {
   }
 }
 
+// The epilogues, applied to the sum plus the shift before the one cast.
+struct Silu {                       // the dilated MBConv blocks' (fast SiLU)
+  static __device__ __forceinline__ float apply(float v) { return mbconv::silu(v); }
+};
+struct GeluErf {                    // the Mix-FFN's exact-erf GELU
+  static __device__ __forceinline__ float apply(float v) {
+    return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+  }
+};
+
 // grid: x the (row band, column band) pairs, bands fastest; y the channel
 // groups; z the images.  Shared memory: the fp32 weights [k * k][GC], then
 // the tile [TH][TWS][GC] of T.  T: uint16_t (bf16 bits) or float; V 4 or 1.
-template <typename T, int K, int V, int TR>
-__global__ void __launch_bounds__(DD_NT, MIN_BLOCKS)
-dw_dilated_nhwc_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                       const float* __restrict__ shift, T* __restrict__ out, int H, int W,
-                       int C, int d, int BH, int BW, int col_bands, int runs, int TWS) {
+// Epi: the epilogue.  The body of both kernels below, which differ only in
+// it (and in their names, which a trace reads).
+template <typename T, int K, int V, int TR, typename Epi>
+__device__ __forceinline__ void dw_nhwc_body(const T* __restrict__ x, const T* __restrict__ w,
+                                             const float* __restrict__ shift,
+                                             T* __restrict__ out, int H, int W, int C, int d,
+                                             int BH, int BW, int col_bands, int runs,
+                                             int TWS) {
   constexpr int GC = GROUP_BYTES / (int)sizeof(T);  // channels a block
   constexpr int GT = GC / V;                        // threads a pixel
   static_assert(V == 4 || V == 1, "4 channels a thread, or 1 on the element-wise path");
@@ -427,10 +450,30 @@ dw_dilated_nhwc_kernel(const T* __restrict__ x, const T* __restrict__ w,
       if (xb0 + d * j >= BW || w0 + xb0 + d * j >= W) break;
       float o[V];
 #pragma unroll
-      for (int i = 0; i < V; ++i) o[i] = mbconv::silu(acc[j][i] + sh[i]);
+      for (int i = 0; i < V; ++i) o[i] = Epi::apply(acc[j][i] + sh[i]);
       store_f<T, V>(op + (size_t)j * d * C, o);
     }
   }
+}
+
+// The dilated MBConv blocks: k 3 or 5, any dilation, SiLU.
+template <typename T, int K, int V, int TR>
+__global__ void __launch_bounds__(DD_NT, MIN_BLOCKS)
+dw_dilated_nhwc_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                       const float* __restrict__ shift, T* __restrict__ out, int H, int W,
+                       int C, int d, int BH, int BW, int col_bands, int runs, int TWS) {
+  dw_nhwc_body<T, K, V, TR, Silu>(x, w, shift, out, H, W, C, d, BH, BW, col_bands, runs, TWS);
+}
+
+// The Mix-FFN's depthwise: k 3, dilation 1, the conv's bias as the shift,
+// exact-erf GELU.
+template <typename T, int V, int TR>
+__global__ void __launch_bounds__(DD_NT, MIN_BLOCKS)
+dw3x3_gelu_nhwc_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                       const float* __restrict__ shift, T* __restrict__ out, int H, int W,
+                       int C, int d, int BH, int BW, int col_bands, int runs, int TWS) {
+  dw_nhwc_body<T, 3, V, TR, GeluErf>(x, w, shift, out, H, W, C, d, BH, BW, col_bands, runs,
+                                     TWS);
 }
 
 // Instructions a channel vector of a band row costs at run length tr: the
@@ -473,7 +516,7 @@ Plan plan(int H, int W, int k, int d, int v, int elem_bytes, bool vec) {
   }
 }
 
-template <typename T, int K, int V, int TR>
+template <typename T, int K, int V, int TR, typename Epi>
 int launch_dd(const void* x, const void* w, const void* shift, void* out, int N, int H,
               int W, int C, int d, const Plan& pl, void* stream) {
   constexpr int GC = GROUP_BYTES / (int)sizeof(T);
@@ -483,6 +526,7 @@ int launch_dd(const void* x, const void* w, const void* shift, void* out, int N,
   const int col_bands = (W + pl.bw - 1) / pl.bw;
   const int bands = (H + pl.bh - 1) / pl.bh;
   auto kernel = dw_dilated_nhwc_kernel<T, K, V, TR>;
+  if constexpr (std::is_same<Epi, GeluErf>::value) kernel = dw3x3_gelu_nhwc_kernel<T, V, TR>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -494,7 +538,7 @@ int launch_dd(const void* x, const void* w, const void* shift, void* out, int N,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int K>
+template <typename T, int K, typename Epi = Silu>
 int dispatch_dd(const void* x, const void* w, const void* shift, void* out, int N, int H,
                 int W, int C, int d, void* stream) {
   constexpr int VV = 4;                      // channels a thread on the vector path
@@ -502,12 +546,12 @@ int dispatch_dd(const void* x, const void* w, const void* shift, void* out, int 
                    ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) & 15) == 0;
   const Plan pl = plan(H, W, K, d, vec ? VV : 1, (int)sizeof(T), vec);
   if (pl.bh < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (!vec) return launch_dd<T, K, 1, 4>(x, w, shift, out, N, H, W, C, d, pl, stream);
+  if (!vec) return launch_dd<T, K, 1, 4, Epi>(x, w, shift, out, N, H, W, C, d, pl, stream);
   switch (pl.tr) {
-    case 4: return launch_dd<T, K, VV, 4>(x, w, shift, out, N, H, W, C, d, pl, stream);
-    case 5: return launch_dd<T, K, VV, 5>(x, w, shift, out, N, H, W, C, d, pl, stream);
-    case 6: return launch_dd<T, K, VV, 6>(x, w, shift, out, N, H, W, C, d, pl, stream);
-    default: return launch_dd<T, K, VV, 8>(x, w, shift, out, N, H, W, C, d, pl, stream);
+    case 4: return launch_dd<T, K, VV, 4, Epi>(x, w, shift, out, N, H, W, C, d, pl, stream);
+    case 5: return launch_dd<T, K, VV, 5, Epi>(x, w, shift, out, N, H, W, C, d, pl, stream);
+    case 6: return launch_dd<T, K, VV, 6, Epi>(x, w, shift, out, N, H, W, C, d, pl, stream);
+    default: return launch_dd<T, K, VV, 8, Epi>(x, w, shift, out, N, H, W, C, d, pl, stream);
   }
 }
 
@@ -526,4 +570,17 @@ extern "C" int dw_dilated_bn_silu_nhwc(const void* x, const void* w, const void*
                   : dispatch_dd<float, 5>(x, w, shift, out, N, H, W, C, d, stream);
   return k == 3 ? dispatch_dd<uint16_t, 3>(x, w, shift, out, N, H, W, C, d, stream)
                 : dispatch_dd<uint16_t, 5>(x, w, shift, out, N, H, W, C, d, stream);
+}
+
+// out = GELU(depthwise 3x3, stride 1, zero padding 1, of x + fp32 shift (the
+// conv's bias)), exact erf, one cast: the Mix-FFN's depthwise on the same
+// tiles as dw_dilated_bn_silu_nhwc at dilation 1.  x, out [N,H,W,C] (NHWC
+// memory); w [3,3,C] in x's dtype; shift [C] fp32; fp32 as above.
+extern "C" int dw3x3_bias_gelu_nhwc(const void* x, const void* w, const void* shift,
+                                    void* out, int N, int H, int W, int C, int fp32,
+                                    void* stream) {
+  if (N < 1 || N > 65535 || H < 1 || W < 1 || C < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (fp32) return dispatch_dd<float, 3, GeluErf>(x, w, shift, out, N, H, W, C, 1, stream);
+  return dispatch_dd<uint16_t, 3, GeluErf>(x, w, shift, out, N, H, W, C, 1, stream);
 }

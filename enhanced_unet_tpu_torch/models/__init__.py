@@ -1,5 +1,7 @@
 """Model factory of the PyTorch port: the JAX package's `get_model` with
-its eleven names (the reference's six slots and the `*_basic` fallbacks).
+its eleven names (the reference's six slots and the `*_basic` fallbacks),
+and the names only the port serves (`PORT_ONLY`): `segformer_b5`,
+SegFormer with the MiT-B5 encoder (`models/segformer.py`).
 
 Every model is called as `model(x_nhwc, generator=None) ->
 (logits_nhwc_f32, aux_dict)`; only `enhanced_unet` has aux outputs.
@@ -22,6 +24,7 @@ from enhanced_unet_tpu_torch.models.enhanced_unet import (
 from enhanced_unet_tpu_torch.models.fcn import FCN, BasicFCN
 from enhanced_unet_tpu_torch.models.linknet import BasicLinkNet, LinkNet
 from enhanced_unet_tpu_torch.models.pspnet import BasicPSPNet, PSPNet
+from enhanced_unet_tpu_torch.models.segformer import SegFormer
 from enhanced_unet_tpu_torch.models.segnet import SegNet
 from enhanced_unet_tpu_torch.models.unet import BasicUNet, UNet
 
@@ -37,15 +40,19 @@ _REGISTRY = {
     "pspnet_basic": BasicPSPNet,
     "linknet": LinkNet,
     "linknet_basic": BasicLinkNet,
+    "segformer_b5": SegFormer,
 }
+# names the port serves that the JAX package does not have
+PORT_ONLY = ("segformer_b5",)
 
 
 def init_random_weights_(model: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded random weights from an explicit generator: conv and
     transposed-conv kernels N(0, 1/fan_in) (fan_in: the input channels of a
-    group times the taps), their biases N(0, 0.05^2), and BatchNorm affine
-    params and running statistics that are not the identity.  In place;
-    returns `model`."""
+    group times the taps), linear weights N(0, 1/in_features), their biases
+    N(0, 0.05^2), and BatchNorm and LayerNorm affine params (and BatchNorm's
+    running statistics) that are not the identity.  In place; returns
+    `model`."""
     gen = torch.Generator().manual_seed(seed)
 
     def randn(shape):
@@ -61,6 +68,13 @@ def init_random_weights_(model: nn.Module, seed: int = 0) -> nn.Module:
                 m.weight.copy_(randn(m.weight.shape) / fan_in ** 0.5)
                 if m.bias is not None:
                     m.bias.copy_(randn(m.bias.shape) * 0.05)
+            elif isinstance(m, nn.Linear):
+                m.weight.copy_(randn(m.weight.shape) / m.in_features ** 0.5)
+                if m.bias is not None:
+                    m.bias.copy_(randn(m.bias.shape) * 0.05)
+            elif isinstance(m, nn.LayerNorm):
+                m.weight.copy_(rand(m.weight.shape) * 0.5 + 0.75)
+                m.bias.copy_(randn(m.bias.shape) * 0.1)
             elif isinstance(m, nn.BatchNorm2d):
                 m.weight.copy_(rand(m.weight.shape) * 0.5 + 0.75)
                 m.bias.copy_(randn(m.bias.shape) * 0.1)
@@ -87,6 +101,6 @@ def get_model(model_name: str, num_classes: int = 3,
     return model
 
 
-__all__ = ["get_model", "init_random_weights_", "SegNet", "UNet", "BasicUNet",
+__all__ = ["get_model", "init_random_weights_", "PORT_ONLY", "SegNet", "UNet", "BasicUNet",
            "EnhancedUNet", "EnhancedUNetBasic", "UNetPlusPlus", "DeepLabV3Plus",
-           "FCN", "BasicFCN", "PSPNet", "BasicPSPNet", "LinkNet", "BasicLinkNet"]
+           "FCN", "BasicFCN", "PSPNet", "BasicPSPNet", "LinkNet", "BasicLinkNet", "SegFormer"]

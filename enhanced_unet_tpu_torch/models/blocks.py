@@ -113,6 +113,27 @@ def refuse_autograd(block: str, params) -> None:
             "forwards under torch.no_grad()/torch.inference_mode(), or use train mode")
 
 
+def cached_weights(owner: nn.Module, slot: str, tensors, counter: str, make,
+                   keep: bool = True):
+    """`make()` under no autograd, kept on `owner` in `__dict__[slot]` and
+    keyed by each tensor's `(data_ptr, _version)`, `owner.dtype` (the
+    compute dtype) and the first tensor's device; made again when the key
+    changes (`load_state_dict`, `.to()`, an in-place edit).  Each making
+    counts `counter` (`utils.profiler`); `keep=False` makes it on every call
+    and keeps nothing."""
+    key = (tuple((t.data_ptr(), t._version) for t in tensors), owner.dtype,
+           tensors[0].device)
+    cached = owner.__dict__.get(slot)
+    if keep and cached is not None and cached[0] == key:
+        return cached[1]
+    count(counter)
+    with torch.inference_mode(False), torch.no_grad():
+        made = make()
+    if keep:
+        owner.__dict__[slot] = (key, made)
+    return made
+
+
 def packed_conv3x3(layer: nn.Conv2d, bn: Optional[nn.BatchNorm2d],
                    dtype: torch.dtype, device: torch.device,
                    cout_slice: Optional[Tuple[int, int]] = None,

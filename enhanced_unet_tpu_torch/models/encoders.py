@@ -36,6 +36,7 @@ import torch.nn.functional as F
 
 from enhanced_unet_tpu_torch.models.blocks import (
     batch_norm,
+    cached_weights,
     conv,
     conv_bn_act,
     need_generator,
@@ -53,7 +54,7 @@ from enhanced_unet_tpu_torch.ops.kernels.mbconv import (
     fold_mbconv_weights,
     mbconv_infer_nchw,
 )
-from enhanced_unet_tpu_torch.utils.profiler import count
+
 
 def _downsample(cin: int, cout: int, stride: int) -> Optional[nn.Sequential]:
     """torchvision's shortcut projection (1x1 stride-s conv, BN), where the
@@ -308,14 +309,15 @@ class MBConvBlock(nn.Module):
             raise ValueError(f"MBConvBlock {self.cin}->{self.cout} holds channel slices of "
                              "its weights: fold it from its weights gathered whole")
         w = whole if sliced else (lambda t: t)
-        return self._cached("_folded", tensors, "kernels.k1_fold", lambda: fold_mbconv_weights(
-            w(self._expand_conv.weight) if expand else None,
-            stats(self._bn0) if expand else None,
-            w(self._depthwise_conv.weight), stats(self._bn1),
-            (w(self._se_reduce.weight), self._se_reduce.bias),
-            (w(self._se_expand.weight), self._se_expand.bias),
-            w(self._project_conv.weight), stats(self._bn2),
-            eps=_BN_EPS, dtype=self.dtype), keep=not sliced)
+        return cached_weights(
+            self, "_folded", tensors, "kernels.k1_fold", lambda: fold_mbconv_weights(
+                w(self._expand_conv.weight) if expand else None,
+                stats(self._bn0) if expand else None,
+                w(self._depthwise_conv.weight), stats(self._bn1),
+                (w(self._se_reduce.weight), self._se_reduce.bias),
+                (w(self._se_expand.weight), self._se_expand.bias),
+                w(self._project_conv.weight), stats(self._bn2),
+                eps=_BN_EPS, dtype=self.dtype), keep=not sliced)
 
     def dw_fold(self) -> DwFolded:
         """BN1 folded into the depthwise weights for the dilated kernel, in
@@ -325,26 +327,8 @@ class MBConvBlock(nn.Module):
         bn = self._bn1
         tensors = [self._depthwise_conv.weight, bn.weight, bn.bias, bn.running_mean,
                    bn.running_var]
-        return self._cached("_dw_folded", tensors, "kernels.dw_fold", lambda: fold_dw_bn(
-            tensors[0], tensors[1:], _BN_EPS, self.dtype))
-
-    def _cached(self, slot: str, tensors, counter: str, make, keep: bool = True):
-        """`make()` under no autograd, kept on the module in `__dict__[slot]`
-        and keyed by each tensor's `(data_ptr, _version)`, the compute dtype
-        and the first tensor's device; made again when the key changes.
-        Each making counts `counter` (`utils.profiler`); `keep=False` makes
-        it on every call and keeps nothing."""
-        key = (tuple((t.data_ptr(), t._version) for t in tensors), self.dtype,
-               tensors[0].device)
-        cached = self.__dict__.get(slot)
-        if keep and cached is not None and cached[0] == key:
-            return cached[1]
-        count(counter)
-        with torch.inference_mode(False), torch.no_grad():
-            made = make()
-        if keep:
-            self.__dict__[slot] = (key, made)
-        return made
+        return cached_weights(self, "_dw_folded", tensors, "kernels.dw_fold",
+                              lambda: fold_dw_bn(tensors[0], tensors[1:], _BN_EPS, self.dtype))
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
         if self.fused and not self.training:

@@ -49,6 +49,14 @@ Nothing on the serving path calls these two kernels; the benches in
 Its rounding points: the folded weights are rounded to the compute dtype,
 the products and their sum are fp32, the shift is fp32, and the SiLU output
 is cast once.
+
+- `dw3x3_bias_gelu_nhwc` serves SegFormer's Mix-FFN (`models/segformer.py`):
+  GELU(depthwise 3x3, stride 1, zero padding 1, + the conv's bias as the
+  fp32 shift), exact erf, on channels_last tensors: the same kernel body as
+  `dw_dilated_bn_silu_nhwc` at dilation 1 with another epilogue, under a
+  kernel name of its own (`dw3x3_gelu_nhwc_kernel`).  `fold_dw_bias` lays
+  out its weights; the model caches them.  The same rounding points, the
+  GELU's output cast once.
 """
 
 from __future__ import annotations
@@ -65,7 +73,7 @@ from enhanced_unet_tpu_torch.ops.kernels.conv_fused import fold_bn_params
 from enhanced_unet_tpu_torch.utils.profiler import track_launches
 
 LAUNCHES = track_launches({"dw3x3_bias_silu": 0, "dw_rows_silu": 0,
-                          "dw_dilated_bn_silu_nhwc": 0})
+                          "dw_dilated_bn_silu_nhwc": 0, "dw3x3_bias_gelu_nhwc": 0})
 _SOURCE = "depthwise"
 _INT_MAX = 2 ** 31 - 1
 
@@ -150,6 +158,8 @@ def _lib() -> ctypes.CDLL:
         lib.dw_rows_silu.restype = i
         lib.dw_dilated_bn_silu_nhwc.argtypes = [vp] * 4 + [i] * 7 + [vp]
         lib.dw_dilated_bn_silu_nhwc.restype = i
+        lib.dw3x3_bias_gelu_nhwc.argtypes = [vp] * 4 + [i] * 5 + [vp]
+        lib.dw3x3_bias_gelu_nhwc.restype = i
     return lib
 
 
@@ -276,4 +286,48 @@ def dw_dilated_bn_silu_nhwc(x: torch.Tensor, p: DwFolded, dilation: int) -> torc
         w.shape[0], dilation, int(x.dtype == torch.float32), build.stream_ptr(x.device))
     build.check(rc, "dw_dilated_bn_silu_nhwc launch")
     LAUNCHES["dw_dilated_bn_silu_nhwc"] += 1
+    return out
+
+
+def fold_dw_bias(weight: torch.Tensor, bias: torch.Tensor, dtype: torch.dtype) -> DwFolded:
+    """A 3x3 depthwise conv's weight [C, 1, 3, 3] (torch layout) and bias [C]
+    as `dw3x3_bias_gelu_nhwc` takes them: weights [3, 3, C] in `dtype`, the
+    bias as the fp32 shift."""
+    return DwFolded(w=weight[:, 0].to(dtype).permute(1, 2, 0).contiguous(),
+                    shift=bias.float().contiguous())
+
+
+def _check_gelu(x: torch.Tensor, p: DwFolded) -> None:
+    _check_dilated(x, p, 1)
+    if p.w.shape[0] != 3:
+        raise ValueError(f"the GELU kernel takes 3x3 weights, got {tuple(p.w.shape)}")
+
+
+def dw3x3_bias_gelu_nhwc_plain(x: torch.Tensor, p: DwFolded) -> torch.Tensor:
+    """Plain version: x [N,C,H,W] -> GELU(depthwise 3x3(x; p.w, zero
+    padding 1) + p.shift), exact erf, fp32 sums, cast to x's dtype."""
+    acc = F.conv2d(x.float(), p.w.float().permute(2, 0, 1)[:, None], padding=1,
+                   groups=p.w.shape[2])
+    return F.gelu(acc + p.shift.float()[None, :, None, None]).to(x.dtype)
+
+
+def dw3x3_bias_gelu_nhwc(x: torch.Tensor, p: DwFolded) -> torch.Tensor:
+    """GELU(depthwise 3x3, stride 1, zero padding 1, + shift) of x [N,C,H,W],
+    bf16 or fp32, with `p` (`fold_dw_bias`) in x's dtype on x's device.  CPU
+    tensor: the plain version.  CUDA tensor: the kernel on NHWC memory (a
+    channels_last x goes in without a copy; another layout is copied to
+    channels_last first), a channels_last result; or an error for what it
+    does not take."""
+    _check_gelu(x, p)
+    if x.device.type == "cpu":
+        return dw3x3_bias_gelu_nhwc_plain(x, p)
+    x = x.contiguous(memory_format=torch.channels_last)
+    w, shift = p.w.contiguous(), p.shift.contiguous()
+    out = torch.empty_like(x, memory_format=torch.channels_last)
+    n, c, h, width = x.shape
+    rc = _lib().dw3x3_bias_gelu_nhwc(
+        build.ptr(x), build.ptr(w), build.ptr(shift), build.ptr(out), n, h, width, c,
+        int(x.dtype == torch.float32), build.stream_ptr(x.device))
+    build.check(rc, "dw3x3_bias_gelu_nhwc launch")
+    LAUNCHES["dw3x3_bias_gelu_nhwc"] += 1
     return out

@@ -1373,3 +1373,86 @@ def test_a_tiled_request_launches_the_dilated_kernel_30_times(cuda):
         got.append(profiler.counters())
     assert [c["launches.dw_dilated_bn_silu_nhwc"] for c in got] == [30, 30]
     assert [c.get("kernels.dw_fold", 0) for c in got] == [10, 0]
+
+
+def _gelu_check(x, p):
+    from enhanced_unet_tpu_torch.ops.kernels import depthwise
+
+    before = depthwise.LAUNCHES["dw3x3_bias_gelu_nhwc"]
+    got = depthwise.dw3x3_bias_gelu_nhwc(x, p)
+    torch.cuda.synchronize()
+    assert depthwise.LAUNCHES["dw3x3_bias_gelu_nhwc"] == before + 1
+    want = depthwise.dw3x3_bias_gelu_nhwc_plain(x, p)
+    assert got.dtype == x.dtype and got.shape == want.shape
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert _rel(got, want) <= _tol(x.dtype)
+
+
+def _gelu_case(cuda, dtype, n, c, h, w, seed):
+    from enhanced_unet_tpu_torch.ops.kernels.depthwise import fold_dw_bias
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(n, c, h, w, generator=g, device=cuda).to(dtype)
+    p = fold_dw_bias(torch.randn(c, 1, 3, 3, generator=g, device=cuda) * 0.3,
+                     torch.randn(c, generator=g, device=cuda) * 0.3, dtype)
+    return x, p
+
+
+# SegFormer-B5's Mix-FFN widths on its stage maps (512^2 tiles: 128^2 to
+# 16^2; 384^2 and 640^2 tiles: 12^2 to 160^2), odd widths and heights
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c,h,w", [(256, 128, 128), (256, 160, 160), (512, 48, 48),
+                                   (1280, 40, 40), (1280, 24, 24), (2048, 12, 12),
+                                   (2048, 16, 16), (512, 33, 70)])
+def test_mixffn_gelu_kernel_matches_plain_at_the_serving_widths(cuda, dtype, c, h, w):
+    x, p = _gelu_case(cuda, dtype, 2, c, h, w, seed=c + h + w)
+    _gelu_check(x.contiguous(memory_format=torch.channels_last), p)
+
+
+# an odd channel count (the element-wise path), one-pixel maps and rows, a
+# map wider than a band of columns, an NCHW input (copied first), and a
+# start that is not 16-byte aligned
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,c,h,w,layout,offset", [
+    (3, 13, 9, 11, "cl", 0), (1, 64, 1, 1, "cl", 0), (2, 40, 1, 97, "cl", 0),
+    (1, 16, 100, 3, "cl", 0), (2, 96, 10, 70, "nchw", 0), (2, 64, 12, 13, "cl", 3)])
+def test_mixffn_gelu_kernel_takes_odd_shapes(cuda, dtype, n, c, h, w, layout, offset):
+    x, p = _gelu_case(cuda, dtype, n, c, h, w, seed=c * 7 + h)
+    if offset:
+        flat = torch.empty(x.numel() + offset, device=cuda, dtype=dtype)
+        view = flat[offset:].view(n, h, w, c).permute(0, 3, 1, 2)
+        view.copy_(x)
+        x = view
+    elif layout == "cl":
+        x = x.contiguous(memory_format=torch.channels_last)
+    _gelu_check(x, p)
+
+
+def test_a_tiled_segformer_request_launches_the_gelu_kernel_156_times(cuda):
+    # SegFormer-B5 serving a tiled request with TTA: three forwards of 52
+    # Mix-FFN blocks; after a weight swap the first request lays out each
+    # block's depthwise weights once, the next none
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from enhanced_unet_tpu_torch.models import get_model
+    from enhanced_unet_tpu_torch.train.evaluator import Evaluator
+    from enhanced_unet_tpu_torch.utils import profiler
+
+    model = get_model("segformer_b5", device=cuda, seed=2)
+    ev = Evaluator(model, "segformer_b5", enable_tta=True, device=cuda, verbose=False,
+                   tiled=True, tile=256, overlap=32)
+    img = np.random.default_rng(0).random((1, 384, 400, 3)).astype(np.float32)
+    ev.predict_semantic_masks_tiled(img)
+    ev.update_state({k: v + 0.01 if v.is_floating_point() else v
+                     for k, v in model.state_dict().items()})
+    got = []
+    for _ in range(2):
+        profiler.clear()
+        with profile(activities=[ProfilerActivity.CPU]):
+            ev.predict_semantic_masks_tiled(img)
+        got.append((profiler.counters(), profiler.spans()))
+    assert [c["launches.dw3x3_bias_gelu_nhwc"] for c, _ in got] == [156, 156]
+    assert [c.get("kernels.mixffn_fold", 0) for c, _ in got] == [52, 0]
+    names = {s["name"] for s in got[1][1]}
+    assert {f"model.segformer.stage{i}" for i in (1, 2, 3, 4)} | {"model.segformer.head"} <= names

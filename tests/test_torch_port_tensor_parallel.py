@@ -50,7 +50,7 @@ from enhanced_unet_tpu.parallel import make_tp_apply as jmake_tp_apply
 from enhanced_unet_tpu.parallel import shard_params_tp as jshard_params_tp
 from enhanced_unet_tpu.parallel import tp_param_specs as jtp_param_specs
 from enhanced_unet_tpu_torch.convert.jax_params import state_dict_from_jax
-from enhanced_unet_tpu_torch.models import _REGISTRY, init_random_weights_
+from enhanced_unet_tpu_torch.models import PORT_ONLY, _REGISTRY, init_random_weights_
 from enhanced_unet_tpu_torch.models.blocks import ConvBNAct
 from enhanced_unet_tpu_torch.models.encoders import MBConvBlock
 from enhanced_unet_tpu_torch.parallel import (
@@ -65,9 +65,10 @@ torch.set_num_threads(1)
 TINY = ("efficientnet-tiny", "efficientnet-tiny")
 B5B4 = ("efficientnet-b5", "efficientnet-b4")
 UNCALLED = "unetpp.decoder.blocks.x_0_4.attention1."
-# (model name, encoder pair) of each spec case: the eleven names, the
-# flagship also at full width
-SPEC_CASES = {name: (name, None) for name in _REGISTRY if name != "enhanced_unet"}
+# (model name, encoder pair) of each spec case: the eleven names of the JAX
+# registry, the flagship also at full width
+SPEC_CASES = {name: (name, None) for name in _REGISTRY
+              if name != "enhanced_unet" and name not in PORT_ONLY}
 SPEC_CASES.update({"enhanced_unet_tiny": ("enhanced_unet", TINY),
                    "enhanced_unet_b5b4": ("enhanced_unet", B5B4)})
 

@@ -297,8 +297,10 @@ def test_build_encoder_matches_jax(name, depth):
 
 def test_get_model_builds_all_eleven_names_of_the_jax_registry():
     from enhanced_unet_tpu.models import _REGISTRY as JREG
-    from enhanced_unet_tpu_torch.models import _REGISTRY
+    from enhanced_unet_tpu_torch.models import PORT_ONLY, _REGISTRY
 
-    assert sorted(_REGISTRY) == sorted(JREG)
+    # the JAX package's eleven names, and the names only the port serves
+    assert not set(PORT_ONLY) & set(JREG)
+    assert sorted(_REGISTRY) == sorted([*JREG, *PORT_ONLY])
     with pytest.raises(ValueError, match="Unknown model"):
         get_model("resnet", device="cpu")
