@@ -54,6 +54,15 @@ Phases (any failure exits non-zero):
     2e-2 of its plain version and 5e-2 of the stock sequence (cuDNN's
     depthwise conv with bias, then GELU), the GELU instances faster than
     the stock sequence over the request;
+ 3d. the UNet++ decoder's scSE over a list of channel parts (`scse_parts`,
+    bf16, channels_last) at a tiled 2048^2 request's 63 calls (the 21 of a
+    forward, `SCSE_CALLS`, on [75,*,512,512], [25,*,384,384] and
+    [25,*,640,640]), each within 2e-2 of max |value| of its plain version
+    and 5e-2 of the stock sequence it replaced (nearest upsample,
+    `torch.cat`, `SCSEBlock`'s stock calls), summed over the request
+    (`scse_entry`), which it must beat, with the function's bytes bound
+    (the parts read once) and the design's (read twice); phases 4 and 4e
+    then check 63 calls a request, and its `kernels` entry takes 4e's;
  4. the slice: `get_model("enhanced_unet")` at full width (EfficientNet-B5
     UNet++ + EfficientNet-B4 DeepLabV3+, bf16, seeded random weights) served
     by an `Evaluator` with TTA: three requests of two 512x512 images; every
@@ -1484,6 +1493,105 @@ def mixffn_rows(dev) -> list:
             rows.append(row)
             del x, p
     return rows
+
+
+# the UNet++ decoder's 21 scSE calls a forward on the B5/B4 flagship
+# (`scse_parts`): (part widths, whether the first is the node below read
+# through a nearest 2x upsample, the output map's stride); the ten inner
+# nodes' attention1, then the eleven nodes' attention2.  A tiled request's
+# three forwards run them on `MIXFFN_FORWARDS`' batches and tiles.
+SCSE = "scse_parts"
+SCSE_CALLS = (
+    ((512, 176), True, 16), ((176, 64), True, 8), ((64, 40), True, 4), ((40, 48), True, 2),
+    ((256, 64, 64), True, 8), ((64, 40, 40), True, 4), ((40, 48, 48), True, 2),
+    ((128, 40, 40, 40), True, 4), ((40, 48, 48, 48), True, 2),
+    ((64, 48, 48, 48, 48), True, 2),
+    ((256,), False, 16), ((64,), False, 8), ((40,), False, 4), ((48,), False, 2),
+    ((128,), False, 8), ((40,), False, 4), ((48,), False, 2), ((64,), False, 4),
+    ((48,), False, 2), ((32,), False, 2), ((16,), False, 1))
+SCSE_A_REQUEST = 3 * len(SCSE_CALLS)
+SCSE_GROUP = (("scse_parts (three kernels a call)", ("scse_",)),)
+
+
+def scse_case(dev, n: int, tile: int, widths, up: bool, stride: int, g):
+    """Seeded bf16 channels_last parts of one scSE call on `n` tiles of
+    `tile`^2 (the first at half the map when `up`) and its block's folded
+    weights (`init_random_weights_` on an `SCSEBlock` of the call's width)."""
+    import torch
+
+    from enhanced_unet_tpu_torch.models import init_random_weights_
+    from enhanced_unet_tpu_torch.models.blocks import SCSEBlock
+
+    hw = tile // stride
+    parts = []
+    for i, c in enumerate(widths):
+        side = hw // 2 if up and i == 0 else hw
+        parts.append((torch.randn(n, c, side, side, generator=g, device=dev) * 0.5).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last))
+    block = init_random_weights_(SCSEBlock(sum(widths)), sum(widths) + stride).to(dev).eval()
+    return parts, block
+
+
+def scse_rows(dev) -> list:
+    """`scse_parts` (bf16, channels_last) at each of a tiled 2048^2
+    request's 63 calls (21 shapes of each forward): `microtime.kernel_row`
+    against its plain version (2e-2) and against the stock sequence it
+    replaced (the nearest upsample, `torch.cat`, then `SCSEBlock`'s stock
+    calls, whose 1x1 convs round elsewhere: 5e-2), with the bytes (the
+    parts read once, the upsampled one at its source size, the output
+    written once), the bytes of this design (`design_bytes`: the parts read
+    twice, for the means and for the gates) and the operations (per output
+    element the sSE's multiply-add, two products and a sum, ~5; the cSE's
+    are negligible) per call."""
+    import torch
+
+    from enhanced_unet_tpu_torch.benchmarks.microtime import kernel_row
+    from enhanced_unet_tpu_torch.ops.kernels.scse import scse_parts, scse_parts_plain
+
+    rows = []
+    g = torch.Generator(device=dev).manual_seed(0)
+    for n, tile in MIXFFN_FORWARDS:
+        for widths, up, stride in SCSE_CALLS:
+            parts, block = scse_case(dev, n, tile, widths, up, stride, g)
+            w = block.fold()
+            block.train()                       # the stock sequence of calls
+
+            def stock():
+                return block(*parts, up=up)
+
+            row = kernel_row(SCSE, lambda: scse_parts(parts, up, w),
+                             lambda: scse_parts_plain(parts, up, w), 2e-2,
+                             library=stock, library_tol=5e-2)
+            c, hw = sum(widths), tile // stride
+            read = sum(t.numel() for t in parts)
+            row.update(shape=f"[{n},{'+'.join(map(str, widths))},{hw},{hw}]"
+                             + (" up" if up else ""), blocks=1,
+                       bytes=2 * (read + n * c * hw * hw),
+                       design_bytes=2 * (2 * read + n * c * hw * hw), ops=5 * n * c * hw * hw)
+            rows.append(row)
+            del parts, block, w
+    return rows
+
+
+def scse_entry(rows: list) -> dict:
+    """Phase 3d: `scse_parts` over a tiled 2048^2 request on the B5/B4
+    flagship from its rows at the request's 63 calls, which must beat the
+    stock sequence over the request.  `bound_ms` is the function's bytes
+    bound (the parts read once); `design_bound_ms` that of this three-launch
+    design, which reads them twice.  Callable alone:
+    `scse_entry(scse_rows(dev))`."""
+    out = request_entry(
+        SCSE, rows, SCSE_A_REQUEST,
+        f"a tiled 2048^2 request's {SCSE_A_REQUEST} calls (the UNet++ decoder's 21 a forward "
+        f"on [75,*,512,512], [25,*,384,384], [25,*,640,640]; bf16, channels_last)")
+    out["design_bound_ms"], _ = bound(sum(r["design_bytes"] * r["blocks"] for r in rows), 0,
+                                      "fp32")
+    print(f"{SCSE}: design bound (the parts read twice) {out['design_bound_ms']:.4f} ms, "
+          f"{out['ms'] / out['design_bound_ms']:.2f} times")
+    check(out["ms"] < out["library_ms"],
+          f"{SCSE} beats the stock sequence over a request: {out['ms']} ms against "
+          f"{out['library_ms']}")
+    return out
 
 
 def phase4h_segformer(card: str, counters, dev, **model_kwargs) -> dict:
@@ -3639,7 +3747,7 @@ def main(argv=None) -> int:
     from enhanced_unet_tpu_torch.benchmarks import mbconv_proto as proto
     from enhanced_unet_tpu_torch.benchmarks.microtime import device_ms
     from enhanced_unet_tpu_torch.ops.kernels import KERNEL_SOURCES, build
-    from enhanced_unet_tpu_torch.ops.kernels import conv_fused, depthwise, mbconv
+    from enhanced_unet_tpu_torch.ops.kernels import conv_fused, depthwise, mbconv, scse
     from enhanced_unet_tpu_torch.ops.kernels import copy as copy_k
     from enhanced_unet_tpu_torch.train.evaluator import Evaluator
     import torch.nn.functional as F
@@ -4004,6 +4112,11 @@ def main(argv=None) -> int:
             **ratio, **{k: row[k] for k in ("yardstick_ms",) if k in row}))
     # ---- 3c. the depthwise kernel's two epilogues over a tiled request -----
     results.update(depthwise_entries(dilated, mixffn))
+    # ---- 3d. the UNet++ decoder's scSE over a tiled request ---------------
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        results[SCSE] = scse_entry(scse_rows(dev))
+    print(f"scSE rows: {time.perf_counter() - t0:.1f} s")
     # B2's passes beside the library's channels_last block (several calls,
     # both passes and the gate) on the bench's values: its seeded parameters
     # and input, drawn again in the same order
@@ -4066,7 +4179,10 @@ def main(argv=None) -> int:
     evaluator = Evaluator(model, "enhanced_unet")
     check(evaluator.enable_tta, "the enhanced_unet preset serves with TTA")
     requests = [synthetic_images(2, 512, seed) for seed in range(3)]
+    reset([scse.LAUNCHES])
     served = serve_counted(evaluator, requests, counters, "the flagship")
+    check(scse.LAUNCHES[SCSE] == SCSE_A_REQUEST * len(requests),
+          f"{SCSE_A_REQUEST} scSE calls a request: {scse.LAUNCHES[SCSE]} in {len(requests)}")
     k2_calls, k1_calls, folds = served["k2_calls"], served["k1_calls"], served["folds"]
     times = served["wall_ms"]
     classes_seen = set()
@@ -4096,7 +4212,7 @@ def main(argv=None) -> int:
     check(served["k1_inputs"] == {(True, True)},
           "every K1 input channels_last and every folded weight in place on the card")
     groups = profile_run(lambda: evaluator.predict_semantic_masks(requests[-1]),
-                         min(times[1:]), "one request")
+                         min(times[1:]), "one request", extra_groups=SCSE_GROUP)
 
     # ---- 4b. K2 at every shape the serving path gave it ------------------
     t0 = time.perf_counter()
@@ -4225,8 +4341,12 @@ def main(argv=None) -> int:
           "tiled serving with TTA, the whole grid in one chunk")
     micrograph = synthetic_images(1, TILED_SIZE, 21)[0]
     n_tiles = len(tile_grid(TILED_SIZE, TILED_SIZE, TILE, TILE_OVERLAP)[2])
+    reset([scse.LAUNCHES])
     tiled_run = serve_counted(tiled, [micrograph] * 3, counters, "tiled serving",
                               serve=tiled.predict_semantic_mask)
+    check(scse.LAUNCHES[SCSE] == 3 * SCSE_A_REQUEST,
+          f"{SCSE_A_REQUEST} scSE calls a tiled request: {scse.LAUNCHES[SCSE]} in 3")
+    tiled_scse = scse.LAUNCHES[SCSE] // 3
     for i, (wall, span, shapes, mask) in enumerate(zip(
             tiled_run["wall_ms"], tiled_run["span_ms"], tiled_run["forwards"],
             tiled_run["masks"])):
@@ -4256,7 +4376,8 @@ def main(argv=None) -> int:
     tiled_off = {k: v for k, v in tiled_launches.items() if k not in serving}
     check(not any(tiled_off.values()), f"the tiled path launched {tiled_off}")
     tiled_groups = profile_run(lambda: tiled.predict_semantic_mask(micrograph),
-                               min(tiled_walls[1:]), f"one tiled {TILED_SIZE}^2 request")
+                               min(tiled_walls[1:]), f"one tiled {TILED_SIZE}^2 request",
+                               extra_groups=SCSE_GROUP)
     # the host-stitched path (chunks of 8 tiles, probabilities downloaded)
     # and the whole path in chunks of 8 tiles, against the whole grid
     t0 = time.perf_counter()
@@ -4585,6 +4706,9 @@ def main(argv=None) -> int:
                   "none (XLA: enhanced_unet_tpu/models/encoders.py:181)"),
         # no Pallas kernel: the JAX package has no SegFormer
         MIXFFN: ("enhanced_unet_tpu_torch/csrc/depthwise.cu", "none (no SegFormer in JAX)"),
+        # no Pallas kernel: the JAX package's parts-list scSE is compiled by XLA
+        SCSE: ("enhanced_unet_tpu_torch/csrc/scse.cu",
+               "none (XLA: enhanced_unet_tpu/models/packed_blocks.py PackedSCSEMulti)"),
     }
     # launches, each from the run whose time and shape the entry reports:
     # the serving run's for its kernels, the benches' (3b) for theirs (B1:
@@ -4593,14 +4717,15 @@ def main(argv=None) -> int:
     # `nhwc_expand` kernels (the bf16 expand block) and `nchw` ones (the
     # fp32 block), phase 9c's spatial flagship at world size 1 for K1's
     # windowed `nhwc` pass 1 and 9c's own check for the fp32 windowed one,
-    # and a tiled request's (4e) for the dilated kernel and SegFormer-B5's
-    # (4h) for the Mix-FFN one, whose entries sum those requests' shapes
+    # and a tiled request's (4e) for the dilated kernel and the scSE one and
+    # SegFormer-B5's (4h) for the Mix-FFN one, whose entries sum those
+    # requests' shapes
     path_launches = {**launches, **bench_launches, "conv3x3_bn_act_mma": general_launches,
                      **spatial["launches"],
                      **{k: case_launches["nhwc_expand"][k]
                         for k in ("mbconv_nhwc_expand_pass1", "mbconv_nhwc_expand_pass2")},
                      **{k: case_launches["nchw"][k] for k in ("mbconv_pass1", "mbconv_pass2")},
-                     DILATED: tiled_launches[DILATED],
+                     DILATED: tiled_launches[DILATED], SCSE: tiled_scse,
                      MIXFFN: segformer_run["launches"][MIXFFN]}
     # what the spatial flagship's call at world size 1 (9c) launched of the
     # serving kernels
@@ -4628,6 +4753,8 @@ def main(argv=None) -> int:
                         "wall_ms": r["wall_ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
+                        **({"design_bound_ms": r["design_bound_ms"]} if "design_bound_ms" in r
+                           else {}),
                         **({"tiled_launches": tiled_launches[name]} if name in serving
                            else {}),
                         **({"zoo_launches": {m: k[name] for m, k in zoo_launches.items()}}

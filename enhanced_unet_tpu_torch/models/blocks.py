@@ -28,6 +28,11 @@ from enhanced_unet_tpu_torch.ops.kernels.conv_fused import (
     fused_conv3x3_bn_relu_packed,
     pack_conv3x3,
 )
+from enhanced_unet_tpu_torch.ops.kernels.scse import (
+    ScseWeights,
+    fold_scse,
+    scse_parts,
+)
 from enhanced_unet_tpu_torch.ops.resize import (
     resize_bilinear_nchw,
     upsample2x_nchw,
@@ -280,7 +285,18 @@ def max_unpool_2x2(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 class SCSEBlock(nn.Module):
     """Concurrent spatial and channel squeeze-excitation (smp SCSEModule:
-    `cSE.1`, `cSE.3`, `sSE.0`)."""
+    `cSE.1`, `cSE.3`, `sSE.0`).
+
+    `block(x, *skips, up=False)` is the scSE of the channel concatenation of
+    x (upsampled 2x, nearest, when `up`) and `skips`.  In eval mode outside
+    a partitioned run (`ops.partition`) it goes through `ops/kernels/scse.py`
+    `scse_parts`, which never forms the concatenation, with the weights
+    folded once (`fold`): its plain version on the CPU, its kernel on a
+    card, the parts cast to the compute dtype and laid out channels_last
+    first (as K2's caller does; no copy where they already are), and an
+    error for what the kernel does not take; it raises when autograd would
+    record it.  Train mode and a partitioned run (whose modes see every
+    PyTorch call) run the stock sequence on the concatenation."""
 
     def __init__(self, c: int, reduction: int = 16,
                  dtype: torch.dtype = torch.bfloat16):
@@ -291,7 +307,26 @@ class SCSEBlock(nn.Module):
         self.sSE = nn.Sequential(nn.Conv2d(c, 1, 1), nn.Sigmoid())
         self.dtype = dtype
 
-    def forward(self, x):
+    def fold(self) -> ScseWeights:
+        """The three 1x1 convs in the compute dtype (`scse.fold_scse`), kept
+        like K2's packs (`cached_weights`); each folding counts
+        `kernels.scse_fold`."""
+        layers = (self.cSE[1], self.cSE[3], self.sSE[0])
+        return cached_weights(self, "_scse_folded", [t for m in layers for t in (m.weight, m.bias)],
+                              "kernels.scse_fold", lambda: fold_scse(*layers, self.dtype))
+
+    def forward(self, x, *skips, up: bool = False):
+        if not self.training and partition.active() is None:
+            refuse_autograd(f"scSE {self.sSE[0].in_channels}", self.parameters())
+            parts = [x, *skips]
+            if x.is_cuda:
+                parts = [t.to(self.dtype).contiguous(memory_format=torch.channels_last)
+                         for t in parts]
+            return scse_parts(parts, up, self.fold())
+        if up:
+            x = upsample2x_nearest_nchw(x)
+        if skips:
+            x = torch.cat([x, *skips], dim=1)
         s = x.mean(dim=(2, 3), keepdim=True)
         s = torch.relu(conv(s, self.cSE[1], self.dtype))
         s = conv(s, self.cSE[3], self.dtype)
@@ -307,8 +342,8 @@ class Attention(nn.Module):
         super().__init__()
         self.attention = SCSEBlock(c, dtype=dtype)
 
-    def forward(self, x):
-        return self.attention(x)
+    def forward(self, x, *skips, up: bool = False):
+        return self.attention(x, *skips, up=up)
 
 
 class SeparableConv2d(nn.Sequential):

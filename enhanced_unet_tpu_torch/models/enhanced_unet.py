@@ -80,7 +80,9 @@ class NestedBlock(DoubleConv):
     """UNet++ node (smp DecoderBlock): nearest 2x up of the node below, concat
     with the skips (newest first, encoder feature last), scSE, two 3x3
     ConvBNActs, scSE.  Without skips (the head block) the first scSE is
-    skipped, though its parameters exist."""
+    skipped, though its parameters exist.  The first scSE takes the node
+    below and the skips as parts (`SCSEBlock`), so where its fused path runs
+    neither the upsample nor the concatenation is formed."""
 
     def __init__(self, cin: int, skip: int, cout: int,
                  dtype: torch.dtype = torch.bfloat16):
@@ -88,10 +90,11 @@ class NestedBlock(DoubleConv):
         self.attention1 = Attention(cin + skip, dtype)
         self.attention2 = Attention(cout, dtype)
 
-    def forward(self, x, skip=None):
-        x = upsample2x_nearest_nchw(x)
-        if skip is not None:
-            x = self.attention1(torch.cat([x, skip.to(x.dtype)], dim=1))
+    def forward(self, x, skips=()):
+        if skips:
+            x = self.attention1(x, *(t.to(x.dtype) for t in skips), up=True)
+        else:
+            x = upsample2x_nearest_nchw(x)
         return self.attention2(super().forward(x))
 
 
@@ -131,14 +134,13 @@ class UnetPlusPlusDecoder(nn.Module):
             for depth in range(self.depth - layer):
                 if layer == 0:
                     dense[f"x_{depth}_{depth}"] = self.blocks[f"x_{depth}_{depth}"](
-                        features[depth], features[depth + 1])
+                        features[depth], [features[depth + 1]])
                 else:
                     li = depth + layer
-                    cat = [dense[f"x_{i}_{li}"] for i in range(depth + 1, li + 1)]
-                    cat = torch.cat([t.to(features[li + 1].dtype) for t in cat]
-                                    + [features[li + 1]], dim=1)
+                    skips = [dense[f"x_{i}_{li}"].to(features[li + 1].dtype)
+                             for i in range(depth + 1, li + 1)] + [features[li + 1]]
                     dense[f"x_{depth}_{li}"] = self.blocks[f"x_{depth}_{li}"](
-                        dense[f"x_{depth}_{li - 1}"], cat)
+                        dense[f"x_{depth}_{li - 1}"], skips)
         return self.blocks[f"x_0_{self.depth}"](dense[f"x_0_{self.depth - 1}"])
 
 

@@ -6,4 +6,4 @@ tensor it launches its kernel or raises; nothing falls back.
 """
 
 KERNEL_SOURCES = ("conv3x3_bn_act", "mbconv", "mbconv_nhwc", "mbconv_nhwc_expand",
-                  "depthwise", "copy")
+                  "depthwise", "copy", "scse")

@@ -1456,3 +1456,217 @@ def test_a_tiled_segformer_request_launches_the_gelu_kernel_156_times(cuda):
     assert [c.get("kernels.mixffn_fold", 0) for c, _ in got] == [52, 0]
     names = {s["name"] for s in got[1][1]}
     assert {f"model.segformer.stage{i}" for i in (1, 2, 3, 4)} | {"model.segformer.head"} <= names
+
+
+def _scse_check(parts, up, block):
+    from enhanced_unet_tpu_torch.ops.kernels import scse
+
+    w = block.fold()
+    before = scse.LAUNCHES["scse_parts"]
+    got = scse.scse_parts(parts, up, w)
+    again = scse.scse_parts(parts, up, w)
+    torch.cuda.synchronize()
+    assert scse.LAUNCHES["scse_parts"] == before + 2
+    want = scse.scse_parts_plain(parts, up, w)
+    dtype = parts[0].dtype
+    assert got.dtype == dtype and got.shape == want.shape
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert _rel(got, want) <= _tol(dtype)
+    assert torch.equal(got, again)                  # no atomics: the same bits every call
+
+
+# every scSE call of a tiled 2048^2 request at its serving shape: the 21
+# calls of a forward (`chip_smoke.SCSE_CALLS`) on 75 tiles of 512^2 and 25
+# each of 384^2 and 640^2
+@pytest.mark.parametrize("n,tile", [(75, 512), (25, 384), (25, 640)])
+@pytest.mark.parametrize("call", range(21))
+def test_scse_kernel_matches_plain_at_the_serving_shapes(cuda, n, tile, call):
+    import chip_smoke
+
+    widths, up, stride = chip_smoke.SCSE_CALLS[call]
+    g = torch.Generator(device=cuda).manual_seed(call + tile)
+    parts, block = chip_smoke.scse_case(cuda, n, tile, widths, up, stride, g)
+    _scse_check(parts, up, block)
+
+
+# odd maps (one row, 3 x 5 after the upsample is 6 x 10), one part, eight
+# parts, a part of 8 channels, 1024 channels in all, a view that starts
+# inside its storage but 16-byte aligned; in bf16 and in fp32
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("widths,up,h,w,n", [
+    ((8, 16), True, 2, 2, 1), ((40,), False, 1, 7, 3), ((24, 8, 8), True, 6, 10, 2),
+    ((8,) * 8, False, 9, 13, 2), ((512, 512), True, 8, 8, 2), ((16, 1008), False, 5, 3, 1)])
+def test_scse_kernel_takes_odd_shapes(cuda, widths, up, h, w, n, dtype):
+    from enhanced_unet_tpu_torch.models import init_random_weights_
+    from enhanced_unet_tpu_torch.models.blocks import SCSEBlock
+
+    g = torch.Generator(device=cuda).manual_seed(h * w + len(widths))
+    parts = [(torch.randn(n, c, h // 2 if up and i == 0 else h, w // 2 if up and i == 0 else w,
+                          generator=g, device=cuda) * 0.5).to(dtype)
+             .contiguous(memory_format=torch.channels_last) for i, c in enumerate(widths)]
+    block = init_random_weights_(SCSEBlock(sum(widths), dtype=dtype), 4).to(cuda).eval()
+    _scse_check(parts, up, block)
+
+
+# the B5 flagship's widest calls in fp32 (a model built with dtype float32)
+@pytest.mark.parametrize("call", [0, 4, 9, 10, 20])
+def test_scse_kernel_matches_plain_in_fp32(cuda, call):
+    import chip_smoke
+
+    widths, up, stride = chip_smoke.SCSE_CALLS[call]
+    g = torch.Generator(device=cuda).manual_seed(call)
+    parts, block = chip_smoke.scse_case(cuda, 2, 512, widths, up, stride, g)
+    block = block.float()
+    block.dtype = torch.float32
+    _scse_check([t.float() for t in parts], up, block)
+
+
+def test_scse_kernel_takes_an_aligned_view(cuda):
+    from enhanced_unet_tpu_torch.models import init_random_weights_
+    from enhanced_unet_tpu_torch.models.blocks import SCSEBlock
+
+    dev = cuda
+    flat = torch.randn(2 * 16 * 16 * 24 + 8, device=dev).bfloat16()
+    view = flat[8:].view(2, 16, 16, 24).permute(0, 3, 1, 2)
+    below = torch.randn(2, 8, 8, 8, device=dev).bfloat16().permute(0, 3, 1, 2)
+    block = init_random_weights_(SCSEBlock(32), 6).to(dev).eval()
+    _scse_check([below, view], True, block)
+
+
+def test_scse_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from enhanced_unet_tpu_torch.models import init_random_weights_
+    from enhanced_unet_tpu_torch.models.blocks import SCSEBlock
+    from enhanced_unet_tpu_torch.ops.kernels import scse
+
+    block = init_random_weights_(SCSEBlock(32), 6).to(cuda).eval()
+    w = block.fold()
+    cl = torch.channels_last
+    good = [torch.randn(2, 16, 4, 4, device=cuda).bfloat16().contiguous(memory_format=cl),
+            torch.randn(2, 16, 8, 8, device=cuda).bfloat16().contiguous(memory_format=cl)]
+    before = scse.LAUNCHES["scse_parts"]
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        scse.scse_parts([t.half() for t in good], True, w)
+    with pytest.raises(ValueError, match="bf16 or fp32"):       # bf16 weights
+        scse.scse_parts([t.float() for t in good], True, w)
+    with pytest.raises(ValueError, match="channels_last"):
+        scse.scse_parts([good[0], good[1].contiguous()], True, w)
+    flat = torch.empty(2 * 8 * 8 * 16 + 3, device=cuda, dtype=torch.bfloat16)
+    shifted = flat[3:].view(2, 8, 8, 16).permute(0, 3, 1, 2)
+    with pytest.raises(ValueError, match="aligned"):
+        scse.scse_parts([good[0], shifted], True, w)
+    odd = [torch.randn(2, 12, 4, 4, device=cuda).bfloat16().contiguous(memory_format=cl),
+           torch.randn(2, 20, 8, 8, device=cuda).bfloat16().contiguous(memory_format=cl)]
+    with pytest.raises(ValueError, match="multiple of 8"):
+        scse.scse_parts(odd, True, w)
+    assert scse.LAUNCHES["scse_parts"] == before
+
+
+def test_scse_block_launches_the_kernel_or_raises_on_the_card(cuda):
+    # in eval mode the block casts its parts to its dtype and lays them out
+    # channels_last, as K2's caller does, and launches the kernel; what the
+    # kernel does not take raises, nothing falls back to the stock sequence
+    from enhanced_unet_tpu_torch.models import init_random_weights_
+    from enhanced_unet_tpu_torch.models.blocks import SCSEBlock
+    from enhanced_unet_tpu_torch.ops.kernels import scse
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    nchw = [torch.randn(2, 16, 4, 4, generator=g, device=cuda),
+            torch.randn(2, 16, 8, 8, generator=g, device=cuda)]
+    block = init_random_weights_(SCSEBlock(32, dtype=torch.float32), 6).to(cuda).eval()
+    before = scse.LAUNCHES["scse_parts"]
+    with torch.no_grad():
+        got = block(*nchw, up=True)
+    torch.cuda.synchronize()
+    assert scse.LAUNCHES["scse_parts"] == before + 1
+    cl = [t.contiguous(memory_format=torch.channels_last) for t in nchw]
+    want = scse.scse_parts_plain(cl, True, block.fold())
+    assert got.dtype == torch.float32 and _rel(got, want) <= _tol(torch.float32)
+    odd = [torch.randn(2, 12, 4, 4, device=cuda), torch.randn(2, 20, 8, 8, device=cuda)]
+    with torch.no_grad(), pytest.raises(ValueError, match="multiple of 8"):
+        block(*odd, up=True)
+    wide = init_random_weights_(SCSEBlock(32, dtype=torch.float64), 6).to(cuda).double().eval()
+    with torch.no_grad(), pytest.raises(ValueError, match="bf16 or fp32"):
+        wide(*nchw, up=True)
+    assert scse.LAUNCHES["scse_parts"] == before + 1
+
+
+def test_scse_stock_path_in_train_mode_and_under_a_partition(cuda, monkeypatch):
+    from enhanced_unet_tpu_torch.models import init_random_weights_
+    from enhanced_unet_tpu_torch.models.blocks import SCSEBlock
+    from enhanced_unet_tpu_torch.ops import partition
+    from enhanced_unet_tpu_torch.ops.kernels import scse
+
+    cl = torch.channels_last
+    parts = [torch.randn(2, 16, 4, 4, device=cuda).bfloat16().contiguous(memory_format=cl),
+             torch.randn(2, 16, 8, 8, device=cuda).bfloat16().contiguous(memory_format=cl)]
+    block = init_random_weights_(SCSEBlock(32), 6).to(cuda)
+    before = scse.LAUNCHES["scse_parts"]
+    with torch.no_grad():
+        trained = block.train()(*parts, up=True)
+        with monkeypatch.context() as m:
+            m.setattr(partition, "active", lambda: object())
+            parted = block.eval()(*parts, up=True)
+        fused = block(*parts, up=True)
+    torch.cuda.synchronize()
+    assert scse.LAUNCHES["scse_parts"] == before + 1
+    assert torch.equal(trained, parted)
+    assert _rel(fused, trained) <= _tol(torch.bfloat16)
+    with pytest.raises(RuntimeError, match="no backward"):
+        block(*parts, up=True)
+
+
+def test_the_decoder_runs_no_concatenation_and_one_upsample(cuda):
+    # the B5 flagship's UNet++ decoder on a 512^2 tile: 21 scSE calls a
+    # forward, no torch.cat, and only the head node's nearest upsample
+    from torch.profiler import ProfilerActivity, profile
+
+    from enhanced_unet_tpu_torch.models import init_random_weights_
+    from enhanced_unet_tpu_torch.models.enhanced_unet import UnetPlusPlusDecoder
+    from enhanced_unet_tpu_torch.ops.kernels import scse
+
+    chans = (3, 48, 40, 64, 176, 512)
+    decoder = init_random_weights_(UnetPlusPlusDecoder(chans, (256, 128, 64, 32, 16)), 1)
+    decoder = decoder.to(cuda).eval().to(memory_format=torch.channels_last)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    features = [torch.randn(2, c, 512 >> i, 512 >> i, generator=g, device=cuda).bfloat16()
+                .contiguous(memory_format=torch.channels_last) for i, c in enumerate(chans)]
+    with torch.no_grad():
+        decoder(*features)
+        before = scse.LAUNCHES["scse_parts"]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = decoder(*features)
+            torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert scse.LAUNCHES["scse_parts"] - before == 21
+    assert sum("scse_apply_kernel" in n for n in names) == 21
+    assert not any("CatArrayBatchedCopy" in n for n in names)
+    assert sum("upsample_nearest" in n for n in names) == 1
+    assert out.shape == (2, 16, 512, 512)
+
+
+def test_a_tiled_request_launches_the_scse_kernel_63_times(cuda):
+    # the B5/B4 flagship serving a tiled request with TTA: three forwards of
+    # the UNet++ decoder, 21 scSE calls each; after a weight swap the first
+    # request folds each called block's weights once, the next none
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from enhanced_unet_tpu_torch.models import get_model
+    from enhanced_unet_tpu_torch.train.evaluator import Evaluator
+    from enhanced_unet_tpu_torch.utils import profiler
+
+    model = get_model("enhanced_unet", device=cuda, seed=2)
+    ev = Evaluator(model, "enhanced_unet", enable_tta=True, device=cuda, verbose=False,
+                   tiled=True, tile=256, overlap=32)
+    img = np.random.default_rng(0).random((1, 384, 400, 3)).astype(np.float32)
+    ev.predict_semantic_masks_tiled(img)
+    ev.update_state({k: v + 0.01 if v.is_floating_point() else v
+                     for k, v in model.state_dict().items()})
+    got = []
+    for _ in range(2):
+        profiler.clear()
+        with profile(activities=[ProfilerActivity.CPU]):
+            ev.predict_semantic_masks_tiled(img)
+        got.append(profiler.counters())
+    assert [c["launches.scse_parts"] for c in got] == [63, 63]
+    assert [c.get("kernels.scse_fold", 0) for c in got] == [21, 0]
