@@ -5,9 +5,10 @@
   the JAX package (checked in a fresh interpreter, since this test process
   has imported JAX already).  Module names are matched exactly or by
   `name + "."`: the port's own name starts with `enhanced_unet_tpu`.
-- No `import` statement in the port's files or in `chip_smoke.py`, at any
-  depth, names JAX or the JAX package (imports inside functions run only
-  when called, so the probe alone would miss them).
+- No `import` statement in the port's files, in `kernel_times.py` or in the
+  card tests' helpers, at any depth, names JAX or the JAX package (imports
+  inside functions run only when called, so the probe alone would miss
+  them).
 - The port imports no `cv2`: neither the probe nor any `import` statement
   loads it (the dataset computes OpenCV's polygons and resizes itself).
   Importing the port loads no Pillow either: the dataset imports it when
@@ -99,8 +100,8 @@ def _imported_names(path):
 _PORT_FILES = sorted(
     os.path.relpath(os.path.join(d, f), REPO)
     for d, _, files in os.walk(os.path.join(REPO, "enhanced_unet_tpu_torch"))
-    for f in files if f.endswith(".py")) + ["chip_smoke.py", "tests/spatial_ranks.py",
-                                            "tests/tp_ranks.py"]
+    for f in files if f.endswith(".py")) + ["kernel_times.py", "tests/card_cases.py",
+                                            "tests/spatial_ranks.py", "tests/tp_ranks.py"]
 
 
 def test_import_loads_no_jax_and_nothing_of_the_jax_package():

@@ -3,7 +3,7 @@ on the CPU.
 
 The row-streaming kernels of `enhanced_unet_tpu_torch/csrc/depthwise.cu`
 run only on the card, where `tests/test_torch_port_gpu.py` (`gpu` marker)
-and `chip_smoke.py` hold every path of them against these plain versions.
+holds every path of them against these plain versions.
 Here the plain versions are held against the Pallas kernels of
 `benchmarks/pallas_dw_variants.py` (v1, v3, v4) and
 `benchmarks/pallas_mbconv_instr.py` (`_dw_only_kernel`) in interpret mode,

@@ -593,26 +593,26 @@ def test_tiny_flagship_on_card_matches_cpu(cuda):
 
 
 def test_tiny_train_step_on_card_matches_cpu(cuda):
-    # chip_smoke.py phase 6c's bounds: fp32 loss and running statistics
-    # within 1e-4, the fp32 gradient tree within 1e-3, or 3x the CPU's own
+    # fp32 loss and running statistics within 1e-4 (another summation
+    # order); the fp32 gradient tree within 1e-3, or 3x the CPU's own
     # fp32-to-fp64 distance where that is larger (train-mode BatchNorm at
-    # batch 2 makes the gradient noise-limited), the fp64 gradient tree
+    # batch 2 makes the gradient noise-limited); the fp64 gradient tree
     # within 1e-4
-    import chip_smoke
+    import card_cases
     from enhanced_unet_tpu_torch.config import get_preset
 
     cfg = get_preset("enhanced_unet")
-    batch = chip_smoke.blob_batch(2, 56, 64, 5)
-    run = {(d, dt): chip_smoke.tiny_train_step(cfg, d, dt, batch)
+    batch = card_cases.blob_batch(2, 56, 64, 5)
+    run = {(d, dt): card_cases.tiny_train_step(cfg, d, dt, batch)
            for d in ("cpu", cuda) for dt in (torch.float32, torch.float64)}
     cpu32, cpu64 = run["cpu", torch.float32], run["cpu", torch.float64]
     card32, card64 = run[cuda, torch.float32], run[cuda, torch.float64]
     assert abs(card32["loss"] - cpu32["loss"]) <= 1e-4 * abs(cpu32["loss"])
     for name, want in cpu32["stats"].items():
         assert (card32["stats"][name] - want).abs().max() <= 1e-4 * want.abs().max(), name
-    noise = chip_smoke.tree_rel_l2(cpu32["grads"], cpu64["grads"])
-    assert chip_smoke.tree_rel_l2(card32["grads"], cpu32["grads"]) <= max(1e-3, 3 * noise)
-    assert chip_smoke.tree_rel_l2(card64["grads"], cpu64["grads"]) <= 1e-4
+    noise = card_cases.tree_rel_l2(cpu32["grads"], cpu64["grads"])
+    assert card_cases.tree_rel_l2(card32["grads"], cpu32["grads"]) <= max(1e-3, 3 * noise)
+    assert card_cases.tree_rel_l2(card64["grads"], cpu64["grads"]) <= 1e-4
 
 
 def _tiny_trained_on_card(cuda):
@@ -687,6 +687,39 @@ def test_tiled_evaluator_on_card_matches_cpu(cuda):
     assert np.mean(masks[cuda] == masks["cpu"]) >= 0.999
 
 
+def test_host_stitched_and_chunked_tiles_on_card_match_the_whole_grid(cuda):
+    # the tiny flagship in fp32, TTA on, tile 64 / overlap 16 over 160 x 224
+    # (more than 8 tiles): the host-stitched path (chunks of 8 tiles) and the
+    # device path with `tile_batch=8` against the whole grid in one forward:
+    # probabilities within 1e-4 (a chunk's batch may take another cuDNN
+    # algorithm), each pixel's class the same on 0.9999 of pixels
+    import numpy as np
+
+    from enhanced_unet_tpu_torch.models import get_model
+    from enhanced_unet_tpu_torch.ops.thresholding import convert_probs_to_mask
+    from enhanced_unet_tpu_torch.ops.tiling import tile_grid
+    from enhanced_unet_tpu_torch.train.evaluator import Evaluator
+
+    model = get_model("enhanced_unet", dtype=torch.float32, device=cuda, seed=2,
+                      encoder_names=("efficientnet-tiny", "efficientnet-tiny"))
+    evs = {b: Evaluator(model, "enhanced_unet", device=cuda, verbose=False, tiled=True,
+                        tile=64, overlap=16, tile_batch=b) for b in (None, 8)}
+    assert len(tile_grid(160, 224, 64, 16)[2]) > 8
+    img = np.random.default_rng(3).random((160, 224, 3)).astype(np.float32)
+    with torch.inference_mode():
+        enhanced = Evaluator._enhance(torch.from_numpy(img).to(cuda))[None]
+        whole = evs[None].tiled_probs(enhanced)[0]
+        chunked = evs[8].tiled_probs(enhanced)[0]
+    host = torch.from_numpy(evs[None].predict_probs_tiled(img)).to(cuda)
+    for probs in (chunked, host):
+        assert probs.shape == whole.shape == (160, 224, 3)
+        assert (probs - whole).abs().max().item() <= 1e-4
+    masks = [evs[b].predict_semantic_mask(img) for b in (None, 8)]
+    masks.append(convert_probs_to_mask(host).cpu().numpy())
+    for mask in masks[1:]:
+        assert np.mean(mask == masks[0]) >= 0.9999
+
+
 def test_native_host_ops_match_numpy(cuda):
     import numpy as np
 
@@ -707,7 +740,7 @@ def test_native_host_ops_match_numpy(cuda):
 def test_evaluate_on_card_uses_the_native_host_ops(cuda, monkeypatch):
     import numpy as np
 
-    import chip_smoke
+    import card_cases
     from enhanced_unet_tpu_torch import native
     from enhanced_unet_tpu_torch.models import get_model
     from enhanced_unet_tpu_torch.postprocess import semantic_to_instances
@@ -718,7 +751,7 @@ def test_evaluate_on_card_uses_the_native_host_ops(cuda, monkeypatch):
         fn = getattr(native, name)
         monkeypatch.setattr(native, name, lambda *a, _fn=fn, _n=name: (
             calls.__setitem__(_n, calls[_n] + 1), _fn(*a))[1])
-    batch = chip_smoke.eval_batch(2, 96, 4)
+    batch = card_cases.eval_batch(2, 96, 4)
     ev = Evaluator(get_model("enhanced_unet", dtype=torch.float32, device=cuda, seed=2,
                              encoder_names=("efficientnet-tiny", "efficientnet-tiny")),
                    "enhanced_unet", device=cuda, verbose=False)
@@ -753,10 +786,10 @@ def test_kernels_refuse_a_batch_beyond_the_grid(cuda):
 def _pipeline_batch(cuda):
     """Two seeded 96^2 micrographs with live and dead regions, and the
     augmentation's draws, on the CPU and on the card."""
-    import chip_smoke
+    import card_cases
     from enhanced_unet_tpu_torch.ops.augment import augment_params
 
-    images, masks, _ = chip_smoke.blob_batch(2, 96, 96, 8)
+    images, masks, _ = card_cases.blob_batch(2, 96, 96, 8)
     masks = torch.from_numpy(masks)
     cpu = (torch.floor(torch.from_numpy(images) * 255.0), (masks == 1).to(torch.uint8),
            (masks == 2).to(torch.uint8), masks)
@@ -765,10 +798,11 @@ def _pipeline_batch(cuda):
 
 
 def test_device_pipeline_on_card_matches_cpu(cuda):
-    # chip_smoke.py phase 7's bounds: the augmentation on the same input
-    # within 3 grey levels and 0.99 of the values equal, the preprocess
-    # within 16 levels and 0.9 equal (JAX's jitted run keeps 11 and 0.91
-    # from its own op-by-op run), masks equal
+    # the preprocess within 16 grey levels and 0.9 of the values equal: JAX's
+    # own jitted run keeps 11 levels and 0.91 from its op-by-op run on the
+    # CPU tests' inputs, so another program order moves it that far; the
+    # augmentation on the same input and draws within 3 levels and 0.99
+    # equal; masks equal
     from enhanced_unet_tpu_torch.ops.augment import apply_augment
     from enhanced_unet_tpu_torch.ops.preprocess import cell_specific_preprocess
 
@@ -784,12 +818,12 @@ def test_device_pipeline_on_card_matches_cpu(cuda):
 
 
 def test_loader_on_card_with_and_without_prefetch(cuda, tmp_path, monkeypatch):
-    import chip_smoke
+    import card_cases
     from enhanced_unet_tpu_torch.data import BatchLoader, CellDataset
 
-    monkeypatch.setattr(chip_smoke, "MICROGRAPH_HW", (200, 272))
-    monkeypatch.setattr(chip_smoke, "CELLS", 8)
-    chip_smoke.write_micrographs(str(tmp_path), 4, 3)
+    monkeypatch.setattr(card_cases, "MICROGRAPH_HW", (200, 272))
+    monkeypatch.setattr(card_cases, "CELLS", 8)
+    card_cases.write_micrographs(str(tmp_path), 4, 3)
     ds = CellDataset(str(tmp_path), max_size=128,
                      files=sorted(f.name for f in tmp_path.iterdir() if f.suffix == ".jpg"))
     runs = [list(BatchLoader(ds, 2, (128, 128), train=True, seed=4, prefetch=p, device=cuda))
@@ -805,7 +839,7 @@ def test_train_model_one_epoch_on_card(cuda, tmp_path, monkeypatch):
     import json
     import os
 
-    import chip_smoke
+    import card_cases
     import numpy as np
     from enhanced_unet_tpu_torch import models
     from enhanced_unet_tpu_torch.config import get_preset
@@ -815,11 +849,11 @@ def test_train_model_one_epoch_on_card(cuda, tmp_path, monkeypatch):
     real = models.get_model
     monkeypatch.setattr(api, "get_model", lambda name, **kw: real(
         name, encoder_names=("efficientnet-tiny", "efficientnet-tiny"), **kw))
-    monkeypatch.setattr(chip_smoke, "MICROGRAPH_HW", (200, 272))
-    monkeypatch.setattr(chip_smoke, "CELLS", 8)
+    monkeypatch.setattr(card_cases, "MICROGRAPH_HW", (200, 272))
+    monkeypatch.setattr(card_cases, "CELLS", 8)
     data = tmp_path / "data"
     data.mkdir()
-    chip_smoke.write_micrographs(str(data), 7, 5)
+    card_cases.write_micrographs(str(data), 7, 5)
     cfg = dataclasses.replace(get_preset("enhanced_unet"), num_epochs=1, eval_every_epochs=1)
     k1, k2 = sum(mbconv.LAUNCHES.values()), sum(conv_fused.LAUNCHES.values())
     best = api.train_model("enhanced_unet", data_dir=str(data), max_size=128, cfg=cfg,
@@ -837,18 +871,18 @@ def test_train_model_one_epoch_on_card(cuda, tmp_path, monkeypatch):
 def _entry_setup(tmp_path, monkeypatch):
     """The tiny flagship behind `train.api.get_model`, and seven small
     seeded micrographs (train 4, val 1, test 2)."""
-    import chip_smoke
+    import card_cases
     from enhanced_unet_tpu_torch import models
     from enhanced_unet_tpu_torch.train import api
 
     real = models.get_model
     monkeypatch.setattr(api, "get_model", lambda name, **kw: real(
         name, encoder_names=("efficientnet-tiny", "efficientnet-tiny"), **kw))
-    monkeypatch.setattr(chip_smoke, "MICROGRAPH_HW", (200, 272))
-    monkeypatch.setattr(chip_smoke, "CELLS", 8)
+    monkeypatch.setattr(card_cases, "MICROGRAPH_HW", (200, 272))
+    monkeypatch.setattr(card_cases, "CELLS", 8)
     data = tmp_path / "data"
     data.mkdir()
-    chip_smoke.write_micrographs(str(data), 7, 6)
+    card_cases.write_micrographs(str(data), 7, 6)
     return api, data
 
 
@@ -1141,7 +1175,7 @@ def test_tp_train_step_on_card_at_world_size_1(cuda, tmp_path):
     BatchNorm at batch 2 are noise-limited)."""
     import torch.distributed as dist
 
-    import chip_smoke
+    import card_cases
     from enhanced_unet_tpu_torch.config import get_preset
     from enhanced_unet_tpu_torch.models import get_model
     from enhanced_unet_tpu_torch.ops.kernels import conv_fused, mbconv
@@ -1180,7 +1214,74 @@ def test_tp_train_step_on_card_at_world_size_1(cuda, tmp_path):
         want = out[dtype, "plain"][0]
         assert abs(out[dtype, "tp"][0] - want) <= tol * abs(want), dtype
     wide = torch.float64
-    assert chip_smoke.tree_rel_l2(out[wide, "tp"][1], out[wide, "plain"][1]) <= 1e-5
+    assert card_cases.tree_rel_l2(out[wide, "tp"][1], out[wide, "plain"][1]) <= 1e-5
+
+
+def test_tp_apply_on_card_at_world_size_1(cuda, tmp_path):
+    """`make_tp_apply` on a 1 x 1 grid (NCCL) against the model's own
+    forward: the tiny flagship in bf16 (so that K1's `nhwc` kernels take
+    its stage-0 block), its weights split at `min_channels` 128 (JAX's
+    default: at world size 1 each split keeps the whole weight, and the
+    mode still routes each by its kind).  The logits within bf16's
+    tolerance and the class the same on 0.999 of pixels; K2 launched on
+    column and on row slices, every K2 launch one the mode routed, no
+    row-split call with its ReLU (the ReLU follows the partial sums' sum);
+    K1's `nhwc` passes on weights it did not gather; no plain version; no
+    depthwise or scSE kernel (a partitioned run takes their stock path)."""
+    import torch.distributed as dist
+
+    import card_cases
+    from enhanced_unet_tpu_torch.models import blocks, get_model
+    from enhanced_unet_tpu_torch.ops.kernels import conv_fused, depthwise, mbconv, scse
+    from enhanced_unet_tpu_torch.parallel import make_mesh_2d, make_tp_apply, shard_params_tp
+    from enhanced_unet_tpu_torch.parallel import tensor_parallel as tp
+
+    model = get_model("enhanced_unet", dtype=torch.bfloat16, device=cuda, seed=2,
+                      encoder_names=card_cases.TINY)
+    x = torch.rand(2, 64, 64, 3, generator=torch.Generator().manual_seed(3)).to(cuda)
+    with torch.no_grad():
+        want = model(x)[0].float()
+    counters = (conv_fused.LAUNCHES, mbconv.LAUNCHES, depthwise.LAUNCHES, scse.LAUNCHES,
+                tp.COUNTS)
+    k2_entry, k2_calls, seen = blocks.fused_conv3x3_bn_relu_packed, [], {}
+
+    def recording_k2(xh, packed, relu=True):
+        # the mode counts each K2 call by its split just before it launches
+        kind = next((k for k in ("k2_whole", "k2_column", "k2_row")
+                     if tp.COUNTS[k] != seen[k]), None)
+        seen.update(tp.COUNTS)
+        k2_calls.append((kind, relu))
+        return k2_entry(xh, packed, relu)
+
+    mesh = make_mesh_2d(1, 1, init_dir=str(tmp_path))
+    try:
+        shard_params_tp(model, mesh, 128)
+        before = [dict(c) for c in counters]
+        seen.update(tp.COUNTS)
+        plain, restore = card_cases.count_plain()
+        blocks.fused_conv3x3_bn_relu_packed = recording_k2
+        try:
+            with torch.no_grad():
+                got = make_tp_apply(model, mesh)(x)
+            torch.cuda.synchronize()
+        finally:
+            restore()
+            blocks.fused_conv3x3_bn_relu_packed = k2_entry
+    finally:
+        dist.destroy_process_group()
+    k2, k1, dw, s1, counts = ({k: v - b[k] for k, v in c.items()}
+                              for c, b in zip(counters, before))
+    assert torch.isfinite(got).all() and _rel(got, want) <= _tol(torch.bfloat16)
+    assert (got.argmax(-1) == want.argmax(-1)).double().mean().item() >= 0.999
+    assert counts["k2_column"] > 0 and counts["k2_row"] > 0, counts
+    assert len(k2_calls) == counts["k2_whole"] + counts["k2_column"] + counts["k2_row"] \
+        == sum(k2.values())
+    assert None not in {kind for kind, _ in k2_calls}
+    assert ("k2_row", True) not in k2_calls
+    assert k1["mbconv_nhwc_pass1"] > 0 and k1["mbconv_nhwc_pass2"] == k1["mbconv_nhwc_pass1"]
+    assert counts["k1_gathered"] == 0, counts
+    assert plain == {"conv3x3_bn_act": 0, "mbconv": 0}
+    assert not any(dw.values()) and not any(s1.values())
 
 
 def test_evaluator_mesh_on_card_at_world_size_1(cuda, tmp_path):
@@ -1192,7 +1293,7 @@ def test_evaluator_mesh_on_card_at_world_size_1(cuda, tmp_path):
     import numpy as np
     import torch.distributed as dist
 
-    import chip_smoke
+    import card_cases
     from enhanced_unet_tpu_torch.models import get_model
     from enhanced_unet_tpu_torch.ops.kernels import conv_fused, mbconv
     from enhanced_unet_tpu_torch.parallel import make_mesh
@@ -1206,7 +1307,7 @@ def test_evaluator_mesh_on_card_at_world_size_1(cuda, tmp_path):
     try:
         evs = {m is not None: Evaluator(model, "enhanced_unet", tiled=True, tile=64,
                                         overlap=16, mesh=m) for m in (None, mesh)}
-        plain, restore = chip_smoke.count_plain()
+        plain, restore = card_cases.count_plain()
         try:
             before = sum(mbconv.LAUNCHES.values()), sum(conv_fused.LAUNCHES.values())
             got = evs[True].predict_probs_tiled(img)
@@ -1223,6 +1324,98 @@ def test_evaluator_mesh_on_card_at_world_size_1(cuda, tmp_path):
     assert launched == (True, True) and not any(plain.values())
     assert np.abs(got - want).max() <= 1e-5
     assert mask.dtype == np.uint8 and np.array_equal(mask, want_mask)
+
+
+def test_dp_train_step_on_card_at_world_size_1(cuda, tmp_path):
+    """`make_dp_train_step` on one rank over NCCL (the all-reduce of the
+    gradients, the loss and the running statistics) against
+    `make_train_step` on the same weights and generator seed: the tiny
+    flagship with dropout and stochastic depth on, no K1 or K2 launch
+    (train mode takes the stock path).  fp32: the loss within 1e-4
+    (cuDNN's BatchNorm and the reduction in another order); float64: the
+    loss within 1e-6 (the models cast their logits to fp32), the gradient
+    tree and the running statistics within 1e-5 (relative L2)."""
+    import torch.distributed as dist
+
+    import card_cases
+    from enhanced_unet_tpu_torch.config import get_preset
+    from enhanced_unet_tpu_torch.models import get_model
+    from enhanced_unet_tpu_torch.ops.kernels import conv_fused, mbconv
+    from enhanced_unet_tpu_torch.parallel import make_dp_train_step, make_mesh
+    from enhanced_unet_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    cfg = get_preset("enhanced_unet")
+    images, masks, valid = (torch.from_numpy(a).to(cuda)
+                            for a in card_cases.blob_batch(2, 56, 64, 7))
+    out = {}
+    mesh = make_mesh(1, init_dir=str(tmp_path))
+    try:
+        for dtype in (torch.float32, torch.float64):
+            for path in ("plain", "dp"):
+                model = get_model("enhanced_unet", dtype=dtype, device=cuda, seed=4,
+                                  encoder_names=("efficientnet-tiny",
+                                                 "efficientnet-tiny")).to(dtype)
+                state = create_train_state(model, cfg, 4, device=cuda)
+                step = make_dp_train_step(cfg, mesh) if path == "dp" else make_train_step(cfg)
+                before = (dict(mbconv.LAUNCHES), dict(conv_fused.LAUNCHES))
+                _, metrics = step(state, images.to(dtype), masks, valid,
+                                  torch.Generator(device=cuda).manual_seed(5))
+                torch.cuda.synchronize()
+                assert (dict(mbconv.LAUNCHES), dict(conv_fused.LAUNCHES)) == before
+                out[dtype, path] = (
+                    float(metrics["loss"]),
+                    {n: p.grad.double().cpu() for n, p in model.named_parameters()
+                     if p.grad is not None},
+                    {n: b.double().cpu() for n, b in model.named_buffers() if "running" in n})
+    finally:
+        dist.destroy_process_group()
+    for dtype, tol in ((torch.float32, 1e-4), (torch.float64, 1e-6)):
+        want = out[dtype, "plain"][0]
+        assert abs(out[dtype, "dp"][0] - want) <= tol * abs(want), dtype
+    wide = torch.float64
+    assert card_cases.tree_rel_l2(out[wide, "dp"][1], out[wide, "plain"][1]) <= 1e-5
+    assert card_cases.tree_rel_l2(out[wide, "dp"][2], out[wide, "plain"][2]) <= 1e-5
+
+
+def test_tiled_inference_sharded_on_card_at_world_size_1(cuda, tmp_path):
+    # the tiny flagship in fp32 over 152 x 144 (nine tiles of 64, overlap
+    # 16) on one rank over NCCL against the one-device `tiled_inference`
+    # (batches of 8): probabilities within 1e-5; K1 and K2 launched, no
+    # plain version
+    import numpy as np
+    import torch.distributed as dist
+
+    import card_cases
+    from enhanced_unet_tpu_torch.models import get_model
+    from enhanced_unet_tpu_torch.ops.tiling import tiled_inference
+    from enhanced_unet_tpu_torch.parallel import make_mesh, tiled_inference_sharded
+
+    model = get_model("enhanced_unet", dtype=torch.float32, device=cuda, seed=2,
+                      encoder_names=("efficientnet-tiny", "efficientnet-tiny"))
+    image = torch.from_numpy(
+        np.random.default_rng(4).random((152, 144, 3)).astype(np.float32)).to(cuda)
+
+    def apply_fn(tiles):
+        return model(tiles)[0]
+
+    mesh = make_mesh(1, init_dir=str(tmp_path))
+    try:
+        plain, restore = card_cases.count_plain()
+        try:
+            before = _launches()
+            with torch.no_grad():
+                got = tiled_inference_sharded(apply_fn, image, mesh, tile=64, overlap=16)
+            torch.cuda.synchronize()
+            after = _launches()
+        finally:
+            restore()
+        with torch.no_grad():
+            want = tiled_inference(apply_fn, image, tile=64, overlap=16).cpu()
+    finally:
+        dist.destroy_process_group()
+    assert after[0] > before[0] and after[1] > before[1] and not any(plain.values())
+    assert got.shape == want.shape == (152, 144, 3)
+    assert (got - want).abs().max().item() <= 1e-5
 
 
 def test_spans_time_the_device_their_work_runs_on(cuda):
@@ -1476,16 +1669,16 @@ def _scse_check(parts, up, block):
 
 
 # every scSE call of a tiled 2048^2 request at its serving shape: the 21
-# calls of a forward (`chip_smoke.SCSE_CALLS`) on 75 tiles of 512^2 and 25
+# calls of a forward (`card_cases.SCSE_CALLS`) on 75 tiles of 512^2 and 25
 # each of 384^2 and 640^2
 @pytest.mark.parametrize("n,tile", [(75, 512), (25, 384), (25, 640)])
 @pytest.mark.parametrize("call", range(21))
 def test_scse_kernel_matches_plain_at_the_serving_shapes(cuda, n, tile, call):
-    import chip_smoke
+    import card_cases
 
-    widths, up, stride = chip_smoke.SCSE_CALLS[call]
+    widths, up, stride = card_cases.SCSE_CALLS[call]
     g = torch.Generator(device=cuda).manual_seed(call + tile)
-    parts, block = chip_smoke.scse_case(cuda, n, tile, widths, up, stride, g)
+    parts, block = card_cases.scse_case(cuda, n, tile, widths, up, stride, g)
     _scse_check(parts, up, block)
 
 
@@ -1511,11 +1704,11 @@ def test_scse_kernel_takes_odd_shapes(cuda, widths, up, h, w, n, dtype):
 # the B5 flagship's widest calls in fp32 (a model built with dtype float32)
 @pytest.mark.parametrize("call", [0, 4, 9, 10, 20])
 def test_scse_kernel_matches_plain_in_fp32(cuda, call):
-    import chip_smoke
+    import card_cases
 
-    widths, up, stride = chip_smoke.SCSE_CALLS[call]
+    widths, up, stride = card_cases.SCSE_CALLS[call]
     g = torch.Generator(device=cuda).manual_seed(call)
-    parts, block = chip_smoke.scse_case(cuda, 2, 512, widths, up, stride, g)
+    parts, block = card_cases.scse_case(cuda, 2, 512, widths, up, stride, g)
     block = block.float()
     block.dtype = torch.float32
     _scse_check([t.float() for t in parts], up, block)

@@ -17,7 +17,7 @@ import collections
 import pytest
 import torch
 
-import chip_smoke
+import card_cases
 from enhanced_unet_tpu_torch.models import init_random_weights_
 from enhanced_unet_tpu_torch.models.blocks import SCSEBlock
 from enhanced_unet_tpu_torch.models.enhanced_unet import NestedBlock, UnetPlusPlusDecoder
@@ -133,7 +133,7 @@ def test_nested_block_splits_its_skips_freely():
 
 def test_the_decoder_hands_each_node_its_parts(monkeypatch):
     # the B5 flagship's decoder at a 64^2 tile: the 21 calls of a forward,
-    # with the parts, upsample flags and strides of `chip_smoke.SCSE_CALLS`
+    # with the parts, upsample flags and strides of `card_cases.SCSE_CALLS`
     calls = []
     plain = scse.scse_parts
 
@@ -150,8 +150,8 @@ def test_the_decoder_hands_each_node_its_parts(monkeypatch):
     with torch.no_grad():
         out = decoder(*features)
     assert out.shape == (1, 16, 64, 64)
-    assert collections.Counter(calls) == collections.Counter(chip_smoke.SCSE_CALLS)
-    assert chip_smoke.SCSE_A_REQUEST == 63
+    assert collections.Counter(calls) == collections.Counter(card_cases.SCSE_CALLS)
+    assert card_cases.SCSE_A_REQUEST == 63
 
 
 def test_the_fold_is_kept_until_a_weight_changes():
@@ -172,9 +172,9 @@ def test_the_fold_is_kept_until_a_weight_changes():
     assert torch.equal(w.ws, (block.sSE[0].weight.reshape(32) * 1).to(torch.bfloat16))
 
 
-@pytest.mark.parametrize("n,tile", chip_smoke.MIXFFN_FORWARDS)
+@pytest.mark.parametrize("n,tile", card_cases.MIXFFN_FORWARDS)
 def test_the_plan_covers_every_serving_call(n, tile):
-    for widths, up, stride in chip_smoke.SCSE_CALLS:
+    for widths, up, stride in card_cases.SCSE_CALLS:
         hw = tile // stride
         pl = scse.plan(n, hw, hw, widths)
         v = sum(widths) // 8
